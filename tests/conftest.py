@@ -16,6 +16,10 @@ def pytest_configure(config):
         "faultinject: deterministic IO fault-injection tests (run alone with "
         "`pytest -m faultinject`)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA card (repro_torch kernels); skips without one",
+    )
 
 
 from repro.graphs import (  # noqa: E402

@@ -1,0 +1,68 @@
+"""repro_torch on a CUDA card: the ell_histogram kernel against its plain
+version, and the device engines against the port's host `sparse` engine.
+
+Every test is marked `cuda` and skips without a card.  The file imports
+neither jax nor the JAX package, so it runs on a machine that has only
+PyTorch:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+"""
+import numpy as np
+import pytest
+import torch
+
+import repro_torch.core.multilevel_torch as mlt
+from repro_torch.core.batch_model import build_batch_model
+from repro_torch.core.fennel import FennelParams
+from repro_torch.core.multilevel import MultilevelConfig, multilevel_partition
+from repro_torch.graphs import grid_mesh_graph, rmat_graph
+from repro_torch.kernels import ell_histogram as eh
+
+pytestmark = pytest.mark.cuda
+
+SHAPES = [(1, 1, 2), (7, 13, 4), (64, 32, 16), (130, 7, 32), (100, 64, 256),
+          (64, 16, 1000), (65536, 8, 32), (4096, 64, 4096)]
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("b,w,k", SHAPES)
+def test_kernel_matches_plain_on_card(b, w, k, card):
+    rng = np.random.default_rng(b + w + k)
+    blk = rng.integers(-1, k, (b, w)).astype(np.int32)
+    for wts in (rng.integers(1, 6, (b, w)), rng.random((b, w))):
+        wts = (wts * (blk >= 0)).astype(np.float32)
+        blk_c, wts_c = torch.from_numpy(blk).to(card), torch.from_numpy(wts).to(card)
+        before = eh.launches
+        got = eh.block_histogram(blk_c, wts_c, k)
+        assert eh.launches == before + 1
+        # the plain version repeats the kernel's float32 adds in w order
+        assert torch.equal(got, eh.ell_histogram_plain(blk_c, wts_c, k))
+
+
+def _batch_model(g, k=8):
+    rng = np.random.default_rng(0)
+    block = np.full(g.n, -1, dtype=np.int64)
+    block[:200] = rng.integers(0, k, 200)
+    loads = np.bincount(block[:200], weights=g.node_w[:200], minlength=k).astype(np.float64)
+    model = build_batch_model(g, np.arange(200, 420), block, k)
+    p = FennelParams(k=k, n_total=float(g.node_w.sum()), m_total=g.total_edge_weight(),
+                     eps=0.05)
+    return model, p, loads
+
+
+@pytest.mark.parametrize("graph", ["rmat", "grid"])
+@pytest.mark.parametrize("engine,mode", [("torch", None), ("torch", "dense"), ("torch", "sort"),
+                                         ("torch", "ell"), ("ell", None), ("auto", None)])
+def test_engines_on_card_match_host_sparse(graph, engine, mode, card, monkeypatch):
+    g = rmat_graph(512, 8, seed=3) if graph == "rmat" else grid_mesh_graph(24)
+    model, p, loads = _batch_model(g)
+    want = multilevel_partition(model.graph, model.pinned_block, p, loads,
+                                MultilevelConfig(engine="sparse", device="cpu"))
+    monkeypatch.setattr(mlt, "MODE_OVERRIDE", mode)
+    got = multilevel_partition(model.graph, model.pinned_block, p, loads,
+                               MultilevelConfig(engine=engine, device=str(card)))
+    np.testing.assert_array_equal(got, want)

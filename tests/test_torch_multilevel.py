@@ -1,0 +1,219 @@
+"""repro_torch's V-cycle engines against repro's: labels from the port's
+`sparse`, `ell` and `torch` (on the CPU, in every aggregation mode)
+engines equal the reference `sparse` engine's; a private copy of the
+reference JAX engine agrees too; the sequential Fennel loop is
+bit-identical."""
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+import repro.core
+import repro.graphs as rg
+from repro.core.batch_model import build_batch_model as ref_build_batch_model
+from repro.core.fennel import FennelParams as RefFennelParams
+from repro.core.multilevel import MultilevelConfig as RefConfig
+from repro.core.multilevel import multilevel_partition as ref_multilevel
+from repro.kernels.fennel_gain import fennel_gain_sequential as ref_fennel_sequential
+import repro_torch.core.multilevel_torch as mlt
+from repro_torch.convert import graph_from_numpy
+from repro_torch.core import multilevel as tml
+from repro_torch.core.fennel import FennelParams
+from repro_torch.kernels.fennel_gain import fennel_gain_sequential
+
+
+def _port(g):
+    return graph_from_numpy(g.indptr, g.indices, g.edge_w, g.node_w)
+
+
+def _batch_model_case():
+    rng = np.random.default_rng(0)
+    g = rg.rmat_graph(512, 8, seed=3)
+    k = 8
+    block = np.full(g.n, -1, dtype=np.int64)
+    block[:200] = rng.integers(0, k, 200)
+    loads = np.bincount(block[:200], weights=g.node_w[:200], minlength=k).astype(np.float64)
+    model = ref_build_batch_model(g, np.arange(200, 420), block, k)
+    return model.graph, model.pinned_block, k, loads, 0.05
+
+
+def _ordered_case(base, order, k):
+    def make():
+        g = rg.apply_order(base(), order(base()))
+        return g, np.full(g.n, -1, dtype=np.int64), k, np.zeros(k), 0.1
+    return make
+
+
+def _k_exceeds_node_bucket():
+    g = rg.rmat_graph(40, 4, seed=0)
+    return g, np.full(g.n, -1, dtype=np.int64), 100, np.zeros(100), 0.1
+
+
+CASES = {
+    "batch_model": _batch_model_case,
+    "rmat_natural": _ordered_case(lambda: rg.rmat_graph(384, 8, seed=11), rg.source_order, 6),
+    "rmat_bfs": _ordered_case(lambda: rg.rmat_graph(384, 8, seed=11), rg.bfs_order, 6),
+    "rmat_adversarial": _ordered_case(lambda: rg.rmat_graph(384, 8, seed=11), rg.konect_order, 6),
+    "grid_natural": _ordered_case(lambda: rg.grid_mesh_graph(24), rg.source_order, 4),
+    "grid_bfs": _ordered_case(lambda: rg.grid_mesh_graph(24), rg.bfs_order, 4),
+    "grid_adversarial": _ordered_case(lambda: rg.grid_mesh_graph(24), rg.konect_order, 4),
+    "k_exceeds_node_bucket": _k_exceeds_node_bucket,
+}
+
+# (port engine, forced aggregation mode of the torch engine)
+ENGINES = [("sparse", None), ("ell", None), ("torch", None), ("torch", "dense"),
+           ("torch", "sort"), ("torch", "ell")]
+
+
+def _params(g, k, eps):
+    ref = RefFennelParams(k=k, n_total=float(g.node_w.sum()),
+                          m_total=g.total_edge_weight(), eps=eps)
+    return ref, FennelParams(k=k, n_total=ref.n_total, m_total=ref.m_total, eps=eps)
+
+
+@pytest.mark.parametrize("engine,mode", ENGINES)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_port_engines_match_reference_sparse(case, engine, mode, monkeypatch):
+    g, pinned, k, loads, eps = CASES[case]()
+    ref_p, p = _params(g, k, eps)
+    want = ref_multilevel(g, pinned, ref_p, loads, RefConfig(engine="sparse"))
+    monkeypatch.setattr(mlt, "MODE_OVERRIDE", mode)
+    got = tml.multilevel_partition(_port(g), pinned, p, loads,
+                                   tml.MultilevelConfig(engine=engine, device="cpu"))
+    np.testing.assert_array_equal(got, want)
+
+
+def _private_jax_engine():
+    """Load repro/core/multilevel_jax.py as a private module (never put in
+    sys.modules): its `from jax.experimental import enable_x64` is bound to
+    `jax.enable_x64` only while the module executes."""
+    import jax
+    import jax.experimental
+
+    path = Path(repro.core.__file__).parent / "multilevel_jax.py"
+    spec = importlib.util.spec_from_file_location("_private_multilevel_jax", path)
+    mod = importlib.util.module_from_spec(spec)
+    had = hasattr(jax.experimental, "enable_x64")
+    if not had:
+        jax.experimental.enable_x64 = jax.enable_x64
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        if not had:
+            del jax.experimental.enable_x64
+    return mod
+
+
+@pytest.fixture(scope="module")
+def jax_engine():
+    return _private_jax_engine()
+
+
+@pytest.mark.parametrize("mode", ["dense", "sort", "ell"])
+def test_torch_engine_matches_reference_jax_engine(mode, jax_engine, monkeypatch):
+    import sys
+
+    g = rg.grid_mesh_graph(64)
+    k = 4
+    pinned = np.full(g.n, -1, dtype=np.int64)
+    ref_p, p = _params(g, k, 0.1)
+    monkeypatch.setattr(jax_engine, "MODE_OVERRIDE", mode)
+    monkeypatch.setattr(mlt, "MODE_OVERRIDE", mode)
+    want = jax_engine.multilevel_partition_jax(g, pinned, ref_p, np.zeros(k),
+                                               RefConfig(engine="jax"))
+    got = tml.multilevel_partition(_port(g), pinned, p, np.zeros(k),
+                                   tml.MultilevelConfig(engine="torch", device="cpu"))
+    np.testing.assert_array_equal(got, want)
+    assert "repro.core.multilevel_jax" not in sys.modules
+
+
+@pytest.mark.parametrize("gamma", [1.5, 2.0, 3.0])
+def test_fennel_gain_sequential_bit_identical(gamma):
+    rng = np.random.default_rng(13)
+    g = rg.rmat_graph(256, 6, seed=21)
+    k = 5
+    p = RefFennelParams(k=k, n_total=float(g.node_w.sum()),
+                        m_total=g.total_edge_weight(), eps=0.08, gamma=gamma)
+    labels0 = np.full(g.n, -1, dtype=np.int64)
+    pin = rng.choice(g.n, 60, replace=False)
+    labels0[pin] = rng.integers(0, k, pin.size)
+    loads0 = np.bincount(labels0[pin], weights=g.node_w[pin], minlength=k).astype(np.float64)
+    free = np.nonzero(labels0 < 0)[0]
+    order = free[np.lexsort((free, -g.node_w[free]))]
+    out = []
+    for fn in (ref_fennel_sequential, fennel_gain_sequential):
+        labels, loads = labels0.copy(), loads0.copy()
+        fn(g.indptr, g.indices, g.edge_w, g.node_w, order, labels, loads,
+           alpha=p.alpha, gamma=p.gamma, cap=p.cap, k=k)
+        out.append((labels, loads))
+    np.testing.assert_array_equal(out[0][0], out[1][0])
+    assert out[0][1].tobytes() == out[1][1].tobytes()  # bitwise, not approx
+
+
+def test_auto_engine_resolves_by_device():
+    g = _port(rg.grid_mesh_graph(8))
+    assert tml._resolve_engine("auto", g, "cpu") == "sparse"
+    assert tml._resolve_engine("auto", g, "cuda") == "ell"
+    assert tml._resolve_engine("torch", g, "cuda") == "sparse"
+    with pytest.raises(ValueError):
+        tml.MultilevelConfig(engine="jax")
+
+
+def test_pick_mode_takes_the_kernel_only_on_a_card():
+    # the full-width batch: n_pad = 65536, mesh rows fit 8-wide tiles, k = 32
+    assert mlt._pick_mode(65536, 32, 8, on_card=True) == "ell"
+    assert mlt._pick_mode(65536, 32, 8, on_card=False) == "dense"
+    assert mlt._pick_mode(65536, 65536, 8, on_card=True) == "sort"  # clustering
+    assert mlt._pick_mode(65536, 32, 512, on_card=True) == "dense"  # too wide
+    assert mlt._pick_mode(2048, 2048, None, on_card=True) == "dense"
+
+
+def test_torch_engine_on_missing_card_raises():
+    if __import__("torch").cuda.is_available():
+        pytest.skip("a card is present: the no-card error path cannot be shown")
+    g, pinned, k, loads, eps = _batch_model_case()
+    _, p = _params(g, k, eps)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tml.multilevel_partition(_port(g), pinned, p, loads,
+                                 tml.MultilevelConfig(engine="torch"))
+
+
+def test_device_engine_failure_propagates_through_driver(monkeypatch):
+    """The port has no per-batch host fallback: an error inside the device
+    engine (a kernel that does not launch, a CUDA fault) fails the run."""
+    from repro_torch.core import BuffCutConfig, buffcut_partition
+
+    def broken(*a, **kw):
+        raise RuntimeError("device lost mid-stream")
+
+    monkeypatch.setattr(mlt, "multilevel_partition_torch", broken)
+    g = rg.grid_mesh_graph(12)
+    cfg = BuffCutConfig(k=4, buffer_size=64, batch_size=32,
+                        ml=tml.MultilevelConfig(engine="torch", device="cpu"))
+    with pytest.raises(RuntimeError, match="device lost mid-stream"):
+        buffcut_partition(_port(g), cfg)
+
+
+def test_agg_autotune_identical_labels_and_converges():
+    """agg_autotune explores both aggregation modes per (phase, shape) and
+    commits to the measured-fastest; exploration never changes a label."""
+    g = rg.rmat_graph(768, 8, seed=9)
+    k = 6
+    pinned = np.full(g.n, -1, dtype=np.int64)
+    ref_p, p = _params(g, k, 0.1)
+    want = ref_multilevel(g, pinned, ref_p, np.zeros(k), RefConfig(engine="sparse"))
+    mlt.reset_agg_tuner()
+    try:
+        cfg = tml.MultilevelConfig(engine="torch", device="cpu", agg_autotune=True)
+        for _ in range(2 * (mlt._AggTuner.WARMUP + mlt._AggTuner.TIMED) + 1):
+            got = tml.multilevel_partition(_port(g), pinned, p, np.zeros(k), cfg)
+            np.testing.assert_array_equal(got, want)
+        decisions = mlt.agg_decisions()
+        assert decisions and set(decisions.values()) <= {"dense", "sort"}
+        assert {phase for phase, _, _ in decisions} <= {"cluster", "refine"}
+    finally:
+        mlt.reset_agg_tuner()
+    tml.multilevel_partition(_port(g), pinned, p, np.zeros(k),
+                             tml.MultilevelConfig(engine="torch", device="cpu"))
+    assert mlt.agg_decisions() == {}  # off by default

@@ -6,16 +6,21 @@
 Phases, each of which fails the run (non-zero exit, no result line):
 
 1. build      compile every CUDA kernel of the port from `src/repro_torch/
-              kernels/csrc` with nvcc (first use) and print the build time
-              and ptxas's register report;
+              kernels/csrc` with nvcc (first use, one nvcc per source, all
+              at once) and print the build time and ptxas's register report;
 2. kernels    hold each kernel against its plain PyTorch version on the
-              card — integer weights exactly, random float weights at
-              rtol 1e-6 / atol 1e-5 — and time kernel, plain version and
-              one library call computing the same function;
+              card — ell_histogram: integer weights exactly, random float
+              weights at rtol 1e-6 / atol 1e-5; swa_attention: at the serve
+              shape with ragged pos and at edge shapes, float32 at rtol 1e-5
+              / atol 1e-5 and bf16 within one bf16 ulp (rtol 8e-3 /
+              atol 1e-3) — and time kernel, plain version and one library
+              call computing the same function;
 3. parity     the device V-cycle (engine "torch" on cuda) against the
               port's host `sparse` engine on batch models of a mesh and an
               R-MAT graph in every forced aggregation mode, a whole driver
               run on R-MAT 2^16, and one batch run twice bit-identically;
+              then, logged and not required, the R-MAT batch at Fennel
+              gamma 1.25 and 2.5, where the device penalty uses CUDA's pow;
 4. auto       the default engine (`MultilevelConfig()`: "auto" on cuda,
               the host V-cycle with the histogram kernel on the card)
               through the driver at the paper's delta = 32768: labels and
@@ -28,7 +33,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
               valid labels, an exact streamed cut and histogram kernel
               launches on this path;
 6. profile    per-stage time of one full-width batch V-cycle, each stage
-              synchronized, and the initial partition's step count.
+              synchronized, and the initial partition's step count;
+7. serve      `repro_torch.launch.serve.serve_lm` at h2o-danube-1.8b's
+              full width (24 layers, d=2560, bf16, random weights from a
+              seeded generator): batch 4, an 8192-token prompt, 32 greedy
+              decode steps; requires finite logits and 24 x 32 launches of
+              the swa_attention kernel; reports prefill time, decode tokens/s
+              and peak memory, and profiles one decode step (the kernel's
+              share of it);
+8. decode     the same model in float32 with TF32 off: batch 1, a
+              4608-token prompt (past the 4096 window) and 4 decode steps;
+              decode logits (the kernel) must equal forward_train's (plain
+              torch flash attention) at rtol 1e-3 / atol 1e-3.
 
 The port has no host fallback: an error of a device engine fails the run.
 
@@ -60,6 +76,21 @@ HIST_SHAPES = [(65536, 8, 32), (4096, 64, 4096), (7, 13, 4), (1, 1, 2), (64, 16,
 
 # the auto route's mesh: n = 33124, one batch of delta = 32768 and a tail
 AUTO_SIDE = 182
+
+# the serve phase: h2o-danube-1.8b at full width, batch 4, 8192-token prompt
+SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS = 4, 8192, 32
+# (B, S, KVH, G, D, window, pos): the serve path's decode shape with ragged
+# pos, then pos = 0, a window wider than the cache, D = 64 and 128, G = 1
+SWA_SHAPES = [
+    (4, SERVE_PROMPT + SERVE_TOKENS + 1, 8, 4, 80, 4096, (8192, 5000, 4096, 37)),
+    (3, 64, 8, 4, 80, 4096, (0, 0, 0)),
+    (2, 100, 2, 4, 80, 4096, (100, 60)),
+    (2, 300, 4, 4, 64, 128, (300, 7)),
+    (2, 300, 4, 4, 128, 128, (250, 129)),
+    (2, 300, 8, 1, 80, 64, (300, 1)),
+]
+# decode_32k of configs/lm_common.py: batch 128 against a 32768-token cache
+SWA_DECODE_32K = (128, 32768)
 
 
 def log(msg: str) -> None:
@@ -214,6 +245,112 @@ def phase_kernels() -> dict:
     }
 
 
+def swa_inputs(b, s, kvh, g, d, pos, dtype, seed: int):
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn((b, kvh, g, d), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((b, s, kvh, d), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((b, s, kvh, d), generator=gen, device="cuda").to(dtype)
+    return q, k, v, torch.tensor(pos, dtype=torch.int32, device="cuda")
+
+
+def swa_bound_ms(kvh: int, g: int, d: int, window: int, s: int, pos, itemsize: int):
+    """(bound in ms, by what): each valid K and V row read once, q read and
+    the output written once; 4·G·D float32 operations per valid position
+    (the two products), at the card's float32 rate."""
+    n = sum(max(0, min(p, s) - max(p - window, 0)) for p in pos)
+    b = len(pos)
+    bytes_moved = 2 * n * kvh * d * itemsize + 2 * b * kvh * g * d * itemsize + 4 * b
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = 4 * n * kvh * g * d / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def swa_time(b: int, s: int, pos, with_library: bool) -> dict:
+    """Device times (ms) of the kernel, its plain version and, with
+    `with_library`, one scaled_dot_product_attention call (the window as a
+    boolean mask over the whole cache; a yardstick only, the port never
+    calls it), bf16 at the serve path's head layout, and the kernel's
+    bound.  The library call is timed at the serve shape, whose numbers
+    the kernel line reports."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import swa_attention as sw
+
+    kvh, g, d, window = 8, 4, 80, 4096
+    q, k, v, p = swa_inputs(b, s, kvh, g, d, pos, torch.bfloat16, seed=b)
+    j = torch.arange(s, device="cuda")
+    p64 = p.long()[:, None]
+    mask = ((j >= (p64 - window).clamp(min=0)) & (j < p64))[:, None, None, :]
+    qh = q.view(b, kvh * g, 1, d)
+    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask, scale=1.0 / d ** 0.5,
+                                              enable_gqa=True)
+
+    calls = {
+        "kernel": lambda: sw.swa_attention_decode(q, k, v, p, window=window),
+        "plain": lambda: sw.swa_attention_decode_plain(q, k, v, p, window=window),
+    }
+    got = calls["kernel"]()
+    torch.testing.assert_close(got, calls["plain"](), rtol=8e-3, atol=1e-3)
+    if with_library:
+        calls["sdpa"] = sdpa
+        # the library's bf16 route rounds at other points than the kernel
+        torch.testing.assert_close(got.view(b, kvh * g, 1, d), sdpa(), rtol=2e-2, atol=2e-3)
+    del got
+    dev = {name: device_ms(fn, iters=20) for name, fn in calls.items()}
+    wall = time_cuda(calls["kernel"])
+    bound, by = swa_bound_ms(kvh, g, d, window, s, pos, 2)
+    lib = f"sdpa {dev['sdpa']:.5f} ms" if with_library else "sdpa not timed"
+    log(f"[kernels] swa_attention B={b} S={s} pos={pos[0]}..{pos[-1]} bf16: kernel "
+        f"{dev['kernel']:.5f} ms (event-timed call {wall:.5f} ms), plain {dev['plain']:.5f} ms, "
+        f"{lib}; bound {bound:.5f} ms ({by})")
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+    return {"ms": dev["kernel"], "plain_ms": dev["plain"], "library_ms": dev.get("sdpa"),
+            "bound_ms": bound, "bound_by": by}
+
+
+def phase_swa_kernel() -> dict:
+    import torch
+
+    from repro_torch.kernels import swa_attention as sw
+
+    worst = 0.0
+    for i, (b, s, kvh, g, d, window, pos) in enumerate(SWA_SHAPES):
+        for dtype, rtol, atol in ((torch.float32, 1e-5, 1e-5), (torch.bfloat16, 8e-3, 1e-3)):
+            q, k, v, p = swa_inputs(b, s, kvh, g, d, pos, dtype, seed=i)
+            got = sw.swa_attention_decode(q, k, v, p, window=window)
+            want = sw.swa_attention_decode_plain(q, k, v, p, window=window)
+            torch.cuda.synchronize()
+            check(got.shape == q.shape and got.dtype == dtype,
+                  f"swa_attention shape/dtype {tuple(got.shape)} {got.dtype}")
+            err = float((got.float() - want.float()).abs().max())
+            worst = max(worst, err)
+            torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+            if max(pos) == 0:
+                check(not bool(got.any()), "swa_attention: an empty window must give zeros")
+            log(f"[kernels] swa_attention (B={b}, S={s}, KVH={kvh}, G={g}, D={d}, "
+                f"window={window}, pos={pos}) {str(dtype)[6:]}: max_abs_err={err:g}")
+    serve_s = SWA_SHAPES[0][1]
+    timed = swa_time(SERVE_BATCH, serve_s, (serve_s - 1 - SERVE_TOKENS,) * SERVE_BATCH, True)
+    b32, s32 = SWA_DECODE_32K
+    swa_time(b32, s32, (s32,) * b32, False)
+    return {
+        "name": "swa_attention",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
+        "replaces": "src/repro/kernels/swa_attention.py:26",
+        "launches": 0,
+        "max_abs_err": worst,
+        **timed,
+    }
+
+
 def batch_model_case(g, batch_lo: int, batch_hi: int, k: int, seed: int):
     """A batch model in mid-stream: nodes before `batch_lo` assigned at
     random, the batch [batch_lo, batch_hi) free."""
@@ -266,6 +403,15 @@ def phase_parity() -> None:
                          for _ in range(2))
         check(np.array_equal(first, second), f"repeat run differs on {name}")
         log(f"[parity] {name}: same batch twice on the card is bit-identical")
+    # gamma outside {1.5, 2, 3}: the device penalty takes CUDA's pow, the
+    # host numpy's; logged, not required (ROADMAP Queue 3)
+    for gamma in (1.25, 2.5):
+        pg = dataclasses.replace(p, gamma=gamma)
+        ref = multilevel_partition(model.graph, model.pinned_block, pg, loads, host)
+        got = multilevel_partition(model.graph, model.pinned_block, pg, loads, dev)
+        log(f"[parity] {name} batch model, gamma={gamma}: torch/cuda labels "
+            f"{'==' if np.array_equal(ref, got) else '!='} sparse "
+            f"({int((ref != got).sum())} of {ref.size} differ)")
 
     g = rmat_graph(2**16, 8, seed=0)
     base = BuffCutConfig(k=32, buffer_size=16384, batch_size=8192, ml=host)
@@ -359,12 +505,13 @@ def phase_full(side: int) -> int:
     from repro_torch.core.metrics import cut_ratio, edge_cut
     from repro_torch.graphs import grid_mesh_graph
     from repro_torch.kernels import ell_histogram as eh
+    from repro_torch.kernels import swa_attention as sw
 
     g = grid_mesh_graph(side)
     cfg = full_width_config()
-    eh.launches = 0
+    eh.launches = sw.launches = 0
     block, stats = buffcut_partition(g, cfg)
-    launches = eh.launches
+    launches, swa_launches = eh.launches, sw.launches
     check(block.shape == (g.n,) and bool((block >= 0).all()) and bool((block < cfg.k).all()),
           "labels outside [0, k)")
     cut = edge_cut(g, block)
@@ -375,7 +522,8 @@ def phase_full(side: int) -> int:
     log(f"[full] grid_mesh_graph({side}): n={g.n} m={g.m} batches={stats.n_batches} "
         f"cut_ratio={cut_ratio(g, block):.6f} balance={stats.balance:.6f} "
         f"runtime_s={stats.runtime_s:.3f} ml_time_s={stats.ml_time_s:.3f} "
-        f"nodes_per_s={g.n / stats.runtime_s:.0f} ell_histogram_launches={launches}")
+        f"nodes_per_s={g.n / stats.runtime_s:.0f} ell_histogram_launches={launches} "
+        f"swa_attention_launches={swa_launches}")
     return launches
 
 
@@ -428,6 +576,137 @@ def phase_profile(side: int) -> None:
         f"initial_fennel steps (coarsest free nodes) {fennel_steps}")
 
 
+def phase_serve() -> int:
+    """h2o-danube-1.8b at full width through `serve_lm`; returns the
+    swa_attention launches of that run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs.h2o_danube_1_8b import full_config
+    from repro_torch.kernels import ell_histogram as eh
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.launch.serve import serve_lm
+    from repro_torch.models import transformer as tfm
+
+    cfg = full_config()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in params.values())
+    check(n_params == cfg.param_count(), f"{n_params} parameters, config says {cfg.param_count()}")
+    log(f"[serve] {cfg.name}: {n_params} parameters ({cfg.dtype}) drawn in "
+        f"{time.perf_counter() - t0:.2f} s")
+    eh.launches = sw.launches = 0
+    res = serve_lm(cfg, SERVE_BATCH, SERVE_PROMPT, SERVE_TOKENS, device="cuda", params=params)
+    launches, hist_launches = sw.launches, eh.launches
+    peak = torch.cuda.max_memory_allocated()
+    check(launches == cfg.n_layers * SERVE_TOKENS,
+          f"{launches} swa_attention launches, expected {cfg.n_layers * SERVE_TOKENS}")
+    check(bool(torch.isfinite(res.logits).all()), "serve logits are not finite")
+    check(res.tokens.shape == (SERVE_BATCH, SERVE_TOKENS + 1)
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()), "bad served tokens")
+    log(f"[serve] batch {SERVE_BATCH}, prompt {SERVE_PROMPT}, {SERVE_TOKENS} new tokens: "
+        f"prefill {res.prefill_s:.4f} s ({SERVE_BATCH * SERVE_PROMPT / res.prefill_s:.0f} "
+        f"prompt tok/s), decode {res.decode_s:.4f} s ({res.tokens_per_s:.1f} tok/s, "
+        f"{res.decode_s / SERVE_TOKENS * 1e3:.3f} ms/step), peak memory {peak / 2**30:.3f} GiB, "
+        f"swa_attention launches {launches}, ell_histogram launches {hist_launches}")
+
+    # prefill's attention alone: one layer's flash_attention at the prompt's
+    # shape, against the whole prefill
+    from repro_torch.models.attention import flash_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    qkv = [torch.randn((SERVE_BATCH, SERVE_PROMPT, h, cfg.d_head), generator=gen,
+                       device="cuda").to(cfg.torch_dtype)
+           for h in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flash_attention(*qkv, causal=True, window=cfg.sliding_window, q_chunk=cfg.q_chunk,
+                    kv_chunk=cfg.kv_chunk)
+    torch.cuda.synchronize()
+    t_attn = time.perf_counter() - t0
+    del qkv
+    log(f"[serve] prefill attention: one layer's flash_attention {t_attn:.4f} s, x "
+        f"{cfg.n_layers} layers = {t_attn * cfg.n_layers / res.prefill_s:.3f} of prefill")
+
+    # one decode step timed, then traced, at the same cache fill (contents
+    # do not change the work): the kernel's share of the step
+    max_len = SERVE_PROMPT + SERVE_TOKENS + 1
+    cache = tfm.init_cache(cfg, SERVE_BATCH, max_len, device="cuda")
+    cache["pos"].fill_(SERVE_PROMPT + SERVE_TOKENS - 1)
+    tok = torch.zeros((SERVE_BATCH, 1), dtype=torch.int32, device="cuda")
+    steps = 3
+    with torch.inference_mode():
+        for _ in range(2):  # warm-up; every step reuses `cache`, so pos stays
+            tfm.forward_decode(params, tok, cache, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            tfm.forward_decode(params, tok, cache, cfg)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps * 1e3
+        # device activity only: each row is one kernel or copy, none counted twice
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                tfm.forward_decode(params, tok, cache, cfg)
+            torch.cuda.synchronize()
+    by_name = {e.key: e.self_device_time_total / steps / 1e3 for e in prof.key_averages()
+               if e.self_device_time_total > 0}
+    busy = sum(by_name.values())
+    kernel = sum(t for k, t in by_name.items() if "swa_decode_kernel" in k)
+    check(kernel > 0, "the profiled decode step ran no swa_attention kernel")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(f"[serve] one decode step at pos {SERVE_PROMPT + SERVE_TOKENS - 1}: wall {wall:.3f} ms, "
+        f"device busy {busy:.3f} ms (idle share {1 - busy / wall:.3f}), swa_attention "
+        f"{kernel:.3f} ms = {kernel / busy:.3f} of device time; top device rows: "
+        + "; ".join(f"{k[:60]} {t:.3f} ms" for k, t in top))
+    del params, cache, res
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_decode_vs_train() -> None:
+    """Float32 h2o-danube-1.8b at full width: decode logits through the
+    kernel, past the window, against forward_train's."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.h2o_danube_1_8b import full_config
+    from repro_torch.kernels import swa_attention as sw
+    from repro_torch.models import transformer as tfm
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for this check")
+    cfg = dataclasses.replace(full_config(), dtype="float32")
+    prompt, steps = 4608, 4
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(1), cfg)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, prompt + steps)).astype(np.int32)).cuda()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        full = tfm.forward_train(params, toks, cfg)[:, prompt - 1:]
+        logits, cache = tfm.forward_prefill(params, toks[:, :prompt], cfg, prompt + steps + 1)
+        outs = [logits]
+        before = sw.launches
+        for i in range(steps):
+            logits, cache = tfm.forward_decode(params, toks[:, prompt + i:prompt + i + 1],
+                                               cache, cfg)
+            outs.append(logits)
+        launches = sw.launches - before
+    inc = torch.cat(outs, dim=1)
+    torch.cuda.synchronize()
+    check(launches == cfg.n_layers * steps, f"{launches} kernel launches in {steps} steps")
+    check(bool(torch.isfinite(inc).all()), "float32 decode logits are not finite")
+    torch.testing.assert_close(inc, full, rtol=1e-3, atol=1e-3)
+    err = float((inc - full).abs().max())
+    log(f"[decode] float32 full width, prompt {prompt}, {steps} decode steps (pos past the "
+        f"{cfg.sliding_window} window): decode logits == forward_train's, max_abs_err={err:g} "
+        f"(|logits| max {float(full.abs().max()):.3f}), {time.perf_counter() - t0:.2f} s")
+    del params, cache, full, inc, outs
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -436,18 +715,31 @@ def main() -> int:
         return 1
     import repro_torch  # noqa: F401  (fails in a directory without the port)
 
+    # float32 products stay float32 on every path of this run
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
     log(f"[env] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
-    phase_build()
-    kernel = phase_kernels()
-    phase_parity()
-    kernel["max_abs_err"] = max(kernel["max_abs_err"], phase_auto(AUTO_SIDE))
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"[env] phase {name}: {time.perf_counter() - t0:.1f} s")
+        return out
+
+    timed("build", phase_build)
+    hist = timed("kernels/ell_histogram", phase_kernels)
+    swa = timed("kernels/swa_attention", phase_swa_kernel)
+    timed("parity", phase_parity)
+    hist["max_abs_err"] = max(hist["max_abs_err"], timed("auto", phase_auto, AUTO_SIDE))
     side = 1024
-    kernel["launches"] = phase_full(side)
-    phase_profile(side)
+    hist["launches"] = timed("full", phase_full, side)
+    timed("profile", phase_profile, side)
+    swa["launches"] = timed("serve", phase_serve)
+    timed("decode", phase_decode_vs_train)
     log(f"[env] total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [kernel]}))
+    print(json.dumps({"kernels": [hist, swa]}))
     print(gpu_name_and_limit())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,14 +1,17 @@
 """Carry inputs from a `repro` (JAX package) run into the port.
 
 The port shares no code with the JAX package, so what crosses over is
-plain data: a graph's CSR arrays and a driver configuration's dict.
+plain data: a graph's CSR arrays, a driver configuration's dict and a
+transformer's parameter arrays.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from repro_torch.core.buffcut import BuffCutConfig
 from repro_torch.graphs.csr import CSRGraph
+from repro_torch.models.transformer import TransformerConfig
 
 
 def graph_from_numpy(
@@ -37,3 +40,16 @@ def buffcut_config_from_dict(d: dict) -> BuffCutConfig:
         ml["engine"] = "torch"
     d["ml"] = ml
     return BuffCutConfig.from_dict(d)
+
+
+def transformer_params_from_numpy(params: dict[str, np.ndarray], cfg: TransformerConfig,
+                                  device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    """The port's parameter dict from a reference `init_params` pytree (each
+    leaf as a numpy array, bfloat16 ones included): same keys and shapes,
+    in the config's dtype on `device`.  Values pass through float32, which
+    holds every bfloat16 and float32 value exactly."""
+    return {
+        name: torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+            device=device, dtype=cfg.torch_dtype)
+        for name, arr in params.items()
+    }

@@ -1,10 +1,11 @@
 """Device selection for the port: explicit, and never silently the CPU.
 
-Engines take a device name (`MultilevelConfig.device`, default "cuda").  A
-CUDA request with no card raises instead of running on the host, and the
-driver's `preflight` also builds and loads the kernel libraries once, so
-a kernel that does not build fails the run before the first record rather
-than inside a batch.
+Engines take a device name (`MultilevelConfig.device`, `serve_lm`'s
+`device`, default "cuda").  A CUDA request with no card raises instead of
+running on the host, and `preflight`, which the driver and `serve_lm` call
+first, also builds and loads the kernel libraries once, so a kernel that
+does not build fails the run before the first record or request rather
+than inside one.
 """
 from __future__ import annotations
 

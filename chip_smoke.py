@@ -44,7 +44,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
 8. decode     the same model in float32 with TF32 off: batch 1, a
               4608-token prompt (past the 4096 window) and 4 decode steps;
               decode logits (the kernel) must equal forward_train's (plain
-              torch flash attention) at rtol 1e-3 / atol 1e-3.
+              torch flash attention) at rtol 1e-3 / atol 1e-3;
+9. bag        dlrm-mlperf's full-width tables (26 x 2^20 x 128 float32,
+              drawn on the card), and the embedding_bag kernel held bit for
+              bit against its plain version on them at batch 512 and 262144
+              with L = 1 (the path) and L = 2 (weighted), indices -1 and V
+              clamping; times kernel, plain version and one
+              torch.nn.functional.embedding_bag call at both batches;
+10. fennel    the fennel_gain kernel held bit for bit (best and score)
+              against its plain version at (B, W, k) = (32768, 64, 32) with
+              integer weights and gamma 1.5, 2 and 3, at k = 1000 with float
+              weights, and with no feasible block; times it at the first;
+11. ops       the four public ops of `repro_torch.kernels`, each called once
+              at a main-path shape: each launches its kernel exactly once;
+12. dlrm      `serve_dlrm` at dlrm-mlperf's full_config on the card at
+              serve_p99 (batch 512) and serve_bulk (batch 262144), 10 timed
+              forwards each after one warm-up, exactly one bag launch per
+              forward; the first 64 logits against a float64 forward on the
+              CPU (those rows' gathered table rows and the MLP weights) at
+              rtol 1e-4 and atol 1e-4 of the largest logit; a profiled
+              forward (the kernel's share); dlrm_retrieval at
+              retrieval_cand (10^6 candidates).
+
+Kernel times are device times from CUDA events around calls enqueued
+behind a spin kernel (`device_ms`); profiler traces give only per-kernel
+breakdowns (`device_rows`).
 
 The port has no host fallback: an error of a device engine fails the run.
 
@@ -55,6 +79,7 @@ nothing of JAX or of the JAX package `repro`.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import inspect
 from collections import Counter
 import json
@@ -91,6 +116,15 @@ SWA_SHAPES = [
 ]
 # decode_32k of configs/lm_common.py: batch 128 against a 32768-token cache
 SWA_DECODE_32K = (128, 32768)
+
+# dlrm-mlperf's serve shapes (configs/dlrm_mlperf.py SHAPES)
+DLRM_P99, DLRM_BULK, DLRM_CANDIDATES = 512, 262144, 1_000_000
+DLRM_ITERS = 10
+# (B, W, k, weights, gamma): the public op's shape at three gammas, then k
+# past a label tile; FENNEL_CASES[0] is timed
+FENNEL_CASES = [(32768, 64, 32, "int", 1.5), (32768, 64, 32, "int", 2.0),
+                (32768, 64, 32, "int", 3.0), (32768, 64, 1000, "float", 1.5)]
+FENNEL_ALPHA, FENNEL_CAP = 0.05, 90.0
 
 
 def log(msg: str) -> None:
@@ -131,23 +165,72 @@ def time_cuda(fn, iters: int = 20, warmup: int = 3) -> float:
     return times[len(times) // 2]
 
 
-def device_ms(fn, iters: int = 50, warmup: int = 3) -> float:
-    """Milliseconds of device work per call of `fn`: the summed device time
-    of every kernel and memset it launches, from a torch.profiler trace.
-    Fails if the trace holds no device time."""
+def device_ms(fn, samples: int = 5, reps: int = 10, warmup: int = 3, before=None) -> float:
+    """Milliseconds of device time per call of `fn`: the median over
+    `samples` of two CUDA events recorded around `reps` back-to-back calls,
+    divided by `reps`, while a spin kernel (`torch.cuda._sleep`) keeps the
+    card busy so that the host's time to enqueue the calls is not counted.
+    An event recorded behind the spin must still be pending once the calls
+    and the closing event are enqueued; if it is not, the sample is taken
+    again with the spin doubled, up to ~35 ms, and then with half the
+    calls (the card queues about a thousand launches, and a plain version
+    that launches hundreds per call fills the queue).  A call that waits on
+    the card, such as a copy to the device, can never pass.  `before`, if
+    given, is enqueued ahead of the first event (an L2 flush)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+    spin = 1 << 21
+    times = []
+    while len(times) < samples:
+        behind, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        torch.cuda._sleep(spin)
+        behind.record()
+        if before is not None:
+            before()
+        start.record()
+        for _ in range(reps):
             fn()
+        end.record()
+        busy = not behind.query()
+        end.synchronize()
+        if busy:
+            times.append(start.elapsed_time(end) / reps)
+        elif spin < 1 << 26:
+            spin *= 2
+        else:
+            check(reps > 1, "the host never finished enqueueing one call within the spin")
+            reps //= 2
+    times.sort()
+    return times[len(times) // 2]
+
+
+def device_rows(fn, iters: int, want: str, expect: int, attempts: int = 5) -> dict:
+    """{row name: device ms per call} over `iters` calls of `fn`, from a
+    torch.profiler trace of device activity only (each row one kernel,
+    memset or copy, none counted twice).  On the card, traces late in a
+    long run have come back empty or missing records, so a trace counts
+    only when it holds `expect` launches of the kernel named `want`; one
+    that does not is logged and taken again.  Other rows may still miss a
+    few records, which understates device time a little."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(1, attempts + 1):
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    check(total_us > 0, "the profiler trace holds no device time")
-    return total_us / iters / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        avgs = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        found = sum(e.count for e in avgs if want in e.key)
+        if found == expect:
+            return {e.key: e.self_device_time_total / iters / 1e3 for e in avgs}
+        log(f"[env] profiler trace {attempt} of {attempts} ({iters} calls) holds {found} "
+            f"launches of {want}, expected {expect}")
+    raise AssertionError(f"no profiler trace in {attempts} attempts held every {want} launch")
 
 
 # ------------------------------------------------------------------ phases
@@ -302,7 +385,7 @@ def swa_time(b: int, s: int, pos, with_library: bool) -> dict:
         # the library's bf16 route rounds at other points than the kernel
         torch.testing.assert_close(got.view(b, kvh * g, 1, d), sdpa(), rtol=2e-2, atol=2e-3)
     del got
-    dev = {name: device_ms(fn, iters=20) for name, fn in calls.items()}
+    dev = {name: device_ms(fn) for name, fn in calls.items()}
     wall = time_cuda(calls["kernel"])
     bound, by = swa_bound_ms(kvh, g, d, window, s, pos, 2)
     lib = f"sdpa {dev['sdpa']:.5f} ms" if with_library else "sdpa not timed"
@@ -580,7 +663,6 @@ def phase_serve() -> int:
     """h2o-danube-1.8b at full width through `serve_lm`; returns the
     swa_attention launches of that run."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs.h2o_danube_1_8b import full_config
     from repro_torch.kernels import ell_histogram as eh
@@ -647,16 +729,10 @@ def phase_serve() -> int:
             tfm.forward_decode(params, tok, cache, cfg)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e3
-        # device activity only: each row is one kernel or copy, none counted twice
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                tfm.forward_decode(params, tok, cache, cfg)
-            torch.cuda.synchronize()
-    by_name = {e.key: e.self_device_time_total / steps / 1e3 for e in prof.key_averages()
-               if e.self_device_time_total > 0}
+        by_name = device_rows(lambda: tfm.forward_decode(params, tok, cache, cfg), steps,
+                              want="swa_decode_kernel", expect=steps * cfg.n_layers)
     busy = sum(by_name.values())
     kernel = sum(t for k, t in by_name.items() if "swa_decode_kernel" in k)
-    check(kernel > 0, "the profiled decode step ran no swa_attention kernel")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     log(f"[serve] one decode step at pos {SERVE_PROMPT + SERVE_TOKENS - 1}: wall {wall:.3f} ms, "
         f"device busy {busy:.3f} ms (idle share {1 - busy / wall:.3f}), swa_attention "
@@ -707,6 +783,357 @@ def phase_decode_vs_train() -> None:
     torch.cuda.empty_cache()
 
 
+def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
+    """(least ms, what bounds it) at the card's byte rate and float32 rate."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_dlrm_init():
+    """dlrm-mlperf's full-width parameters, drawn on the card."""
+    import torch
+
+    from repro_torch.configs.dlrm_mlperf import full_config
+    from repro_torch.models.dlrm import dlrm_init
+
+    cfg = full_config()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = dlrm_init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n = params["tables"].numel() + sum(
+        w.numel() for part in ("bot", "top") for key, w in params[part].items()
+        if key.startswith("w"))
+    check(n == cfg.param_count(), f"{n} weights, config says {cfg.param_count()}")
+    log(f"[bag] {cfg.name}: {n} weights drawn on the card in {time.perf_counter() - t0:.2f} s "
+        f"(tables {tuple(params['tables'].shape)}, {params['tables'].numel() * 4 / 1e9:.3f} GB)")
+    return cfg, params
+
+
+def bag_inputs(cfg, b: int, slots: int, seed: int, weighted: bool):
+    """idx uniform over the vocabulary with a few -1 and V entries (they
+    clamp), mask all ones or uniform weights."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (b, cfg.n_sparse, slots)
+    idx = torch.randint(0, cfg.vocab_size, shape, generator=gen, device="cuda",
+                        dtype=torch.int32)
+    idx.view(-1)[::9973] = -1
+    idx.view(-1)[5::10007] = cfg.vocab_size
+    mask = (torch.rand(shape, generator=gen, device="cuda") if weighted
+            else torch.ones(shape, device="cuda"))
+    return idx, mask
+
+
+def bag_bound(cfg, idx):
+    """The bag's bound at these indices: each distinct (table, row) read
+    once, idx and mask read, the pooled (B, T, D) rows written; one
+    multiply and one add per gathered float."""
+    import torch
+
+    b, t, _ = idx.shape
+    flat = idx.clamp(0, cfg.vocab_size - 1).long() + torch.arange(
+        t, device="cuda")[None, :, None] * cfg.vocab_size
+    rows = int(torch.unique(flat).numel())
+    d = cfg.embed_dim
+    return bound(rows * d * 4 + 2 * idx.numel() * 4 + b * t * d * 4, 2 * idx.numel() * d), rows
+
+
+def phase_bag_kernel(cfg, params) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    eb = importlib.import_module("repro_torch.kernels.embedding_bag")
+    tables = params["tables"]
+    t, v, d = tables.shape
+    worst = 0.0
+    for b in (DLRM_P99, DLRM_BULK):
+        for slots in (1, 2):
+            idx, mask = bag_inputs(cfg, b, slots, seed=b + slots, weighted=slots == 2)
+            got = eb.embedding_bag(tables, idx, mask)
+            want = eb.embedding_bag_plain(tables, idx, mask)
+            torch.cuda.synchronize()
+            check(got.shape == (b, t, d), f"embedding_bag shape {tuple(got.shape)}")
+            err = float((got - want).abs().max())
+            worst = max(worst, err)
+            check(torch.equal(got, want), f"embedding_bag differs from its plain version at "
+                                          f"B={b}, L={slots} (max abs err {err:g})")
+            log(f"[bag] embedding_bag (B={b}, T={t}, L={slots}, V={v}, D={d}"
+                f"{', weighted' if slots == 2 else ''}): equal to the plain version bit for bit")
+            del got, want
+    torch.cuda.empty_cache()
+
+    timed = {}
+    for b in (DLRM_P99, DLRM_BULK):
+        idx, mask = bag_inputs(cfg, b, 1, seed=b, weighted=False)
+        # yardstick only: one library call on the flattened (T*V, D) table
+        # with offset indices (precomputed); the port never calls it
+        flat_idx = (idx.clamp(0, v - 1).long()
+                    + torch.arange(t, device="cuda")[None, :, None] * v).view(-1)
+        offsets = torch.arange(0, idx.numel(), idx.shape[2], device="cuda")
+        flat_table, flat_mask = tables.view(t * v, d), mask.view(-1)
+        calls = {
+            "kernel": lambda: eb.embedding_bag(tables, idx, mask),
+            "plain": lambda: eb.embedding_bag_plain(tables, idx, mask),
+            "F.embedding_bag": lambda: F.embedding_bag(
+                flat_idx, flat_table, offsets, mode="sum", per_sample_weights=flat_mask),
+        }
+        torch.testing.assert_close(calls["F.embedding_bag"]().view(b, t, d), calls["kernel"](),
+                                   rtol=1e-6, atol=1e-6)
+        dev = {name: device_ms(fn) for name, fn in calls.items()}
+        wall = {name: time_cuda(fn, iters=5 if name == "plain" else 20)
+                for name, fn in calls.items()}
+        # the same launch after 64 MB of writes: rows not in the 50 MB L2,
+        # as for a new request (repeated launches at B=512 read from L2)
+        flush = torch.empty(2**24, device="cuda")
+        cold = device_ms(calls["kernel"], samples=20, reps=1, before=flush.zero_)
+        del flush
+        (bnd, by), rows = bag_bound(cfg, idx)
+        log(f"[bag] embedding_bag B={b} L=1: kernel {dev['kernel']:.5f} ms ({cold:.5f} ms with "
+            f"L2 flushed), plain {dev['plain']:.5f} ms, F.embedding_bag "
+            f"{dev['F.embedding_bag']:.5f} ms (event-timed calls {wall['kernel']:.5f}, "
+            f"{wall['plain']:.5f}, {wall['F.embedding_bag']:.5f} ms); bound {bnd:.5f} ms ({by}; "
+            f"{rows} distinct rows of {idx.numel()} lookups)")
+        timed[b] = {"ms": dev["kernel"], "plain_ms": dev["plain"],
+                    "library_ms": dev["F.embedding_bag"], "bound_ms": bnd, "bound_by": by}
+        del idx, mask, flat_idx, offsets, flat_mask, calls
+        torch.cuda.empty_cache()
+    return {
+        "name": "embedding_bag",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/embedding_bag.cu",
+        "replaces": "src/repro/kernels/embedding_bag.py:21",
+        "launches": 0,
+        "max_abs_err": worst,
+        **timed[DLRM_BULK],
+    }
+
+
+def fennel_inputs(b: int, w: int, k: int, weights: str, seed: int):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    blk = rng.integers(-1, k, (b, w)).astype(np.int32)
+    wts = rng.integers(1, 6, (b, w)) if weights == "int" else rng.random((b, w))
+    wts = (wts * (blk >= 0)).astype(np.float32)
+    loads = (rng.random(k) * 100).astype(np.float32)  # some above FENNEL_CAP: infeasible
+    node_w = rng.integers(1, 4, b).astype(np.float32)
+    return [torch.from_numpy(a).cuda() for a in (blk, wts, loads, node_w)]
+
+
+def phase_fennel_kernel() -> dict:
+    import torch
+
+    from repro_torch.kernels import fennel_gain as fg
+
+    for i, (b, w, k, weights, gamma) in enumerate(FENNEL_CASES):
+        args = fennel_inputs(b, w, k, weights, seed=i)
+        kw = dict(alpha=FENNEL_ALPHA, gamma=gamma, cap=FENNEL_CAP)
+        best, score = fg.fennel_choose_batch(*args, **kw)
+        want_best, want_score = fg.fennel_gain_plain(*args, **kw)
+        torch.cuda.synchronize()
+        check(torch.equal(best, want_best) and torch.equal(score, want_score),
+              f"fennel_gain differs from its plain version at {(b, w, k, weights, gamma)}")
+        infeasible = int(torch.isneginf(score).sum())
+        log(f"[fennel] fennel_gain (B={b}, W={w}, k={k}) {weights} weights, gamma={gamma}: best "
+            f"and score equal to the plain version bit for bit ({infeasible} rows with no "
+            f"feasible block)")
+    blk, wts, _, node_w = fennel_inputs(4096, 64, 40, "int", seed=9)
+    loads = torch.full((40,), 95.0, device="cuda")
+    loads[[7, 30]] = 91.0
+    kw = dict(alpha=FENNEL_ALPHA, gamma=1.5, cap=FENNEL_CAP)
+    best, score = fg.fennel_choose_batch(blk, wts, loads, node_w, **kw)
+    want = fg.fennel_gain_plain(blk, wts, loads, node_w, **kw)
+    check(bool((best == 7).all()) and bool(torch.isneginf(score).all())
+          and torch.equal(best, want[0]) and torch.equal(score, want[1]),
+          "fennel_gain: no feasible block must give the first least-loaded block and -inf")
+    log("[fennel] no feasible block: every row takes block 7 (the first least-loaded) with "
+        "score -inf, as the plain version")
+
+    b, w, k, weights, gamma = FENNEL_CASES[0]
+    args = fennel_inputs(b, w, k, weights, seed=0)
+    kw = dict(alpha=FENNEL_ALPHA, gamma=gamma, cap=FENNEL_CAP)
+    # the call's device time: the (k,) penalty's few torch ops, then the kernel
+    kernel_ms = device_ms(lambda: fg.fennel_choose_batch(*args, **kw))
+    plain_ms = device_ms(lambda: fg.fennel_gain_plain(*args, **kw))
+    wall = time_cuda(lambda: fg.fennel_choose_batch(*args, **kw))
+    valid = int((args[0] >= 0).sum())
+    # read the rows, loads and node weights once, write best and score;
+    # one add per valid entry, then an add, a compare, a subtract and an
+    # argmax compare per (row, block)
+    bnd, by = bound(b * w * 8 + k * 4 + b * 4 + b * 8, valid + 4 * b * k)
+    log(f"[fennel] fennel_gain {(b, w, k)}: kernel {kernel_ms:.5f} ms (the call's device time, "
+        f"penalty ops included; event-timed call {wall:.5f} ms), plain {plain_ms:.5f} ms, no "
+        f"single library call computes it; bound {bnd * 1e3:.3f} us ({by})")
+    return {
+        "name": "fennel_gain",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fennel_gain.cu",
+        "replaces": "src/repro/kernels/fennel_gain.py:118",
+        "launches": 0,
+        "max_abs_err": 0.0,
+        "ms": kernel_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bnd,
+        "bound_by": by,
+        "library_ms": None,
+    }
+
+
+def phase_ops(cfg, params) -> dict:
+    """Each public op of repro_torch.kernels once, at a main-path shape,
+    with every launch count zeroed just before; returns the counts."""
+    import torch
+
+    import repro_torch.kernels as ops
+    from repro_torch.kernels import ell_histogram as eh
+    from repro_torch.kernels import fennel_gain as fg
+    from repro_torch.kernels import swa_attention as sw
+
+    eb = importlib.import_module("repro_torch.kernels.embedding_bag")
+    hb, hw, hk = HIST_SHAPES[0]
+    hist_in = hist_inputs(hb, hw, hk, seed=0, integer=True)
+    _, _, _, weights, gamma = FENNEL_CASES[0]
+    fennel_in = fennel_inputs(*FENNEL_CASES[0][:4], seed=0)
+    idx, mask = bag_inputs(cfg, DLRM_P99, 1, seed=3, weighted=False)
+    s = SWA_SHAPES[0][1]
+    swa_in = swa_inputs(SERVE_BATCH, s, 8, 4, 80, (s - 1,) * SERVE_BATCH, torch.bfloat16, seed=4)
+    mods = {"ell_histogram": eh, "fennel_gain": fg, "embedding_bag": eb, "swa_attention": sw}
+    for mod in mods.values():
+        mod.launches = 0
+    ops.block_histogram(*hist_in, hk)
+    ops.fennel_choose_batch(*fennel_in, alpha=FENNEL_ALPHA, gamma=gamma, cap=FENNEL_CAP)
+    ops.embedding_bag(params["tables"], idx, mask)
+    ops.swa_attention_decode(*swa_in, window=4096)
+    torch.cuda.synchronize()
+    counts = {name: mod.launches for name, mod in mods.items()}
+    check(all(n == 1 for n in counts.values()), f"public ops launched {counts}")
+    log(f"[ops] repro_torch.kernels' four public ops, one call each: launches {counts}")
+    return counts
+
+
+def dlrm_reference_f64(cfg, params, batch, rows: int):
+    """Click logits of the first `rows` samples in float64 on the CPU, from
+    those rows' gathered table rows and the MLP weights (a plain forward
+    written out here, independent of the port's model code); also the
+    bottom MLP's output and the pooled bags."""
+    import numpy as np
+    import torch
+
+    idx = batch["sparse_idx"][:rows].long().clamp(0, cfg.vocab_size - 1)
+    tab = torch.arange(cfg.n_sparse)[None, :, None]
+    gathered = params["tables"][tab.cuda(), idx.cuda()].cpu().double()  # (rows, T, L, D)
+    pooled = (gathered * batch["sparse_mask"][:rows].double()[..., None]).sum(dim=2)
+
+    def mlp(p, x, final_relu):
+        n = len([key for key in p if key.startswith("w")])
+        for i in range(n):
+            x = x @ p[f"w{i}"].cpu().double() + p[f"b{i}"].cpu().double()
+            if i < n - 1 or final_relu:
+                x = x.clamp(min=0)
+        return x
+
+    dense_v = mlp(params["bot"], batch["dense"][:rows].cpu().double(), True)
+    feats = torch.cat([dense_v[:, None, :], pooled], dim=1)
+    dots = feats @ feats.transpose(1, 2)
+    iu, ju = np.triu_indices(feats.shape[1], k=1)
+    z = dots[:, torch.from_numpy(iu), torch.from_numpy(ju)]
+    return mlp(params["top"], torch.cat([dense_v, z], dim=-1), False)[:, 0], dense_v, pooled
+
+
+def phase_dlrm(cfg, params) -> int:
+    """dlrm-mlperf at full width through `serve_dlrm` and `dlrm_retrieval`;
+    returns the embedding_bag launches of those runs."""
+    import torch
+
+    from repro_torch.configs.dlrm_mlperf import draw_batch
+    from repro_torch.launch.serve import serve_dlrm
+    from repro_torch.models.dlrm import dlrm_forward, dlrm_retrieval
+
+    eb = importlib.import_module("repro_torch.kernels.embedding_bag")
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for this check")
+    table_bytes = params["tables"].numel() * 4
+    launches = 0
+    for name, rows in (("serve_p99", DLRM_P99), ("serve_bulk", DLRM_BULK)):
+        batch = draw_batch(cfg, rows, seed=rows)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eb.launches = 0
+        res = serve_dlrm(cfg, batch, DLRM_ITERS, device="cuda", params=params)
+        n = eb.launches
+        peak = torch.cuda.max_memory_allocated()
+        check(n == res.forwards == DLRM_ITERS + 1,
+              f"{n} embedding_bag launches in {res.forwards} forwards")
+        launches += n
+        check(res.scores.shape == (rows,) and bool(torch.isfinite(res.scores).all()),
+              "serve_dlrm logits are not finite")
+        want, _, _ = dlrm_reference_f64(cfg, params, batch, 64)
+        got = res.scores[:64].cpu().double()
+        # random weights give logits of ~1e-3, so the absolute part of the
+        # tolerance scales with them
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * float(want.abs().max()))
+        log(f"[dlrm] {name}: batch {rows}, {DLRM_ITERS} timed forwards: {res.us_per_batch:.1f} "
+            f"us/batch ({res.samples_per_s:.0f} samples/s), peak memory {peak / 2**30:.3f} GiB "
+            f"(tables {table_bytes / 2**30:.3f} GiB), embedding_bag launches {n} in "
+            f"{res.forwards} forwards; first 64 logits vs float64 on the CPU "
+            f"max_abs_err={float((got - want).abs().max()):g} "
+            f"(|logits| max {float(want.abs().max()):.4f})")
+        if rows == DLRM_BULK:
+            inputs = {key: batch[key].cuda() for key in ("dense", "sparse_idx", "sparse_mask")}
+            with torch.inference_mode():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                dlrm_forward(params, inputs, cfg)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+                by_name = device_rows(lambda: dlrm_forward(params, inputs, cfg), 3,
+                                      want="embedding_bag_kernel", expect=3)
+            busy = sum(by_name.values())
+            bag = sum(ms for key, ms in by_name.items() if "embedding_bag_kernel" in key)
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+            log(f"[dlrm] one serve_bulk forward: wall {wall:.3f} ms, device busy {busy:.3f} ms "
+                f"(idle share {1 - busy / wall:.3f}), embedding_bag {bag:.3f} ms = "
+                f"{bag / busy:.3f} of device time; top device rows: "
+                + "; ".join(f"{key[:60]} {ms:.3f} ms" for key, ms in top))
+            del inputs
+        del res, batch
+
+    query = draw_batch(cfg, 1, seed=7)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rbatch = {"query_dense": query["dense"].cuda(), "query_sparse_idx": query["sparse_idx"].cuda(),
+              "query_sparse_mask": query["sparse_mask"].cuda(),
+              "candidates": torch.randn((DLRM_CANDIDATES, cfg.embed_dim), generator=gen,
+                                        device="cuda")}
+    eb.launches = 0
+    with torch.inference_mode():
+        scores = dlrm_retrieval(params, rbatch, cfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(DLRM_ITERS):
+            scores = dlrm_retrieval(params, rbatch, cfg)
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) / DLRM_ITERS
+    n = eb.launches
+    check(n == DLRM_ITERS + 1, f"{n} embedding_bag launches in {DLRM_ITERS + 1} retrievals")
+    launches += n
+    check(scores.shape == (DLRM_CANDIDATES,) and bool(torch.isfinite(scores).all()),
+          "retrieval scores are not finite")
+    _, dense_v, pooled = dlrm_reference_f64(cfg, params, query, 1)
+    user = dense_v[0] + pooled[0].mean(dim=0)
+    want = rbatch["candidates"][:4096].cpu().double() @ user
+    got = scores[:4096].cpu().double()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    log(f"[dlrm] retrieval_cand: one query against {DLRM_CANDIDATES} candidates "
+        f"{dt * 1e6:.1f} us/query, embedding_bag launches {n}; the first 4096 scores vs "
+        f"float64 max_abs_err={float((got - want).abs().max()):g}")
+    del rbatch, scores
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -738,8 +1165,14 @@ def main() -> int:
     timed("profile", phase_profile, side)
     swa["launches"] = timed("serve", phase_serve)
     timed("decode", phase_decode_vs_train)
+    cfg, params = timed("dlrm init", phase_dlrm_init)
+    bag = timed("kernels/embedding_bag", phase_bag_kernel, cfg, params)
+    fennel = timed("kernels/fennel_gain", phase_fennel_kernel)
+    fennel["launches"] = timed("ops", phase_ops, cfg, params)["fennel_gain"]
+    bag["launches"] = timed("dlrm", phase_dlrm, cfg, params)
+    del params
     log(f"[env] total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [hist, swa]}))
+    print(json.dumps({"kernels": [hist, swa, bag, fennel]}))
     print(gpu_name_and_limit())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,15 @@
 """Architecture registry: `--arch <id>` resolution.
 
-The port holds h2o-danube-1.8b only so far; the reference's other archs
-(four LMs, four GNNs, DLRM) are listed as still to port in ROADMAP.md.
+The port holds h2o-danube-1.8b and dlrm-mlperf so far; the reference's
+other archs (four LMs, four GNNs) are listed as still to port in
+ROADMAP.md.
 """
-from repro_torch.configs import h2o_danube_1_8b
+from repro_torch.configs import dlrm_mlperf, h2o_danube_1_8b
 from repro_torch.configs.base import ArchSpec, ShapeDef
 
-ARCHS: dict[str, ArchSpec] = {spec.arch_id: spec for spec in [h2o_danube_1_8b.SPEC]}
+ARCHS: dict[str, ArchSpec] = {
+    spec.arch_id: spec for spec in [h2o_danube_1_8b.SPEC, dlrm_mlperf.SPEC]
+}
 
 
 def get_arch(arch_id: str) -> ArchSpec:

@@ -1,8 +1,8 @@
 """Carry inputs from a `repro` (JAX package) run into the port.
 
 The port shares no code with the JAX package, so what crosses over is
-plain data: a graph's CSR arrays, a driver configuration's dict and a
-transformer's parameter arrays.
+plain data: a graph's CSR arrays, a driver configuration's dict, and a
+transformer's or a DLRM's parameter arrays.
 """
 from __future__ import annotations
 
@@ -52,4 +52,19 @@ def transformer_params_from_numpy(params: dict[str, np.ndarray], cfg: Transforme
         name: torch.from_numpy(np.array(arr, dtype=np.float32)).to(
             device=device, dtype=cfg.torch_dtype)
         for name, arr in params.items()
+    }
+
+
+def dlrm_params_from_numpy(params: dict, device: str | torch.device = "cuda") -> dict:
+    """The port's DLRM parameter dict from a reference `dlrm_init` pytree
+    with numpy leaves: `tables` (T, V, D), and the `bot` and `top` MLPs'
+    `w{i}` (fan_in, fan_out) and `b{i}`, copied as float32 onto `device`
+    under the same keys."""
+    def leaf(arr) -> torch.Tensor:
+        return torch.from_numpy(np.array(arr, dtype=np.float32)).to(device)
+
+    return {
+        "tables": leaf(params["tables"]),
+        "bot": {name: leaf(arr) for name, arr in params["bot"].items()},
+        "top": {name: leaf(arr) for name, arr in params["top"].items()},
     }

@@ -1,2 +1,2 @@
 """Model substrate of the port: the decoder-only transformer (dense, GQA,
-sliding-window attention) and its building blocks."""
+sliding-window attention), DLRM, and their building blocks."""

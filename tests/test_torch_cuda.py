@@ -1,22 +1,31 @@
-"""repro_torch on a CUDA card: the ell_histogram and swa_attention kernels
-against their plain versions, and the device engines against the port's
+"""repro_torch on a CUDA card: the ell_histogram, swa_attention,
+embedding_bag and fennel_gain kernels against their plain versions, DLRM
+forwards through the bag kernel, and the device engines against the port's
 host `sparse` engine.
 
 Every test is marked `cuda` and skips without a card.  The file imports
 neither jax nor the JAX package, so it runs on a machine that has only
 PyTorch:  PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 import repro_torch.core.multilevel_torch as mlt
+from repro_torch.configs import dlrm_mlperf
 from repro_torch.core.batch_model import build_batch_model
 from repro_torch.core.fennel import FennelParams
 from repro_torch.core.multilevel import MultilevelConfig, multilevel_partition
 from repro_torch.graphs import grid_mesh_graph, rmat_graph
 from repro_torch.kernels import ell_histogram as eh
+from repro_torch.kernels import fennel_gain as fg
 from repro_torch.kernels import swa_attention as sw
+from repro_torch.launch.serve import serve_dlrm
+from repro_torch.models import dlrm
+
+eb = importlib.import_module("repro_torch.kernels.embedding_bag")
 
 pytestmark = pytest.mark.cuda
 
@@ -126,3 +135,120 @@ def test_device_engine_matches_host_at_other_gammas(gamma, card):
     got = multilevel_partition(model.graph, model.pinned_block, p, loads,
                                MultilevelConfig(engine="torch", device=str(card)))
     np.testing.assert_array_equal(got, want)
+
+
+# (T or None for the 2-D form, V, D, B, L): the reference's test shapes, a D
+# that takes 4-byte loads, DLRM's smoke and serve widths, and L = 0
+BAG_SHAPES = [(None, 16, 8, 4, 1), (None, 64, 96, 32, 5), (None, 128, 128, 16, 3),
+              (None, 32, 200, 8, 7), (None, 50, 7, 9, 2), (4, 128, 16, 16, 2),
+              (26, 4096, 128, 512, 1), (26, 4096, 128, 300, 2), (3, 10, 128, 5, 0)]
+
+
+def _bag_inputs(t, v, d, b, l, card, seed=0):
+    gen = torch.Generator(device=card).manual_seed(seed)
+    lead = () if t is None else (t,)
+    table = torch.randn((*lead, v, d), generator=gen, device=card)
+    idx = torch.randint(-2, v + 2, (b, *lead, l), generator=gen, device=card,
+                        dtype=torch.int32)  # a few out of range: they clamp
+    mask = (torch.rand((b, *lead, l), generator=gen, device=card) > 0.3).float()
+    return table, idx, mask * torch.rand((b, *lead, l), generator=gen, device=card)
+
+
+@pytest.mark.parametrize("t,v,d,b,l", BAG_SHAPES)
+def test_bag_kernel_matches_plain_on_card(t, v, d, b, l, card):
+    table, idx, mask = _bag_inputs(t, v, d, b, l, card, seed=v + d)
+    before = eb.launches
+    got = eb.embedding_bag(table, idx, mask)
+    assert eb.launches == before + 1
+    # the plain version repeats the kernel's multiply-then-add in l order
+    assert torch.equal(got, eb.embedding_bag_plain(table, idx, mask))
+    assert torch.equal(got, eb.embedding_bag(table, idx, mask))  # a second launch
+
+
+def test_bag_kernel_unaligned_table_takes_scalar_loads(card):
+    table, idx, mask = _bag_inputs(None, 33, 128, 16, 2, card)
+    flat = torch.empty(33 * 128 + 1, device=card)
+    shifted = flat[1:].view(33, 128)  # 4 bytes past a 16-byte boundary
+    shifted.copy_(table)
+    assert torch.equal(eb.embedding_bag(shifted, idx, mask),
+                       eb.embedding_bag_plain(table, idx, mask))
+
+
+def test_bag_kernel_at_full_width_needs_64_bit_offsets(card):
+    """26 stacked 2^20 x 128 tables hold 3.49e9 floats: table 16 on starts
+    past 2^31 elements."""
+    cfg = dlrm_mlperf.full_config()
+    t, v, d = cfg.n_sparse, cfg.vocab_size, cfg.embed_dim
+    table = torch.empty((t, v, d), device=card)
+    rows = torch.arange(t, device=card, dtype=torch.float32)[:, None] * 10 + torch.arange(
+        d, device=card, dtype=torch.float32)
+    table[:, v - 1] = rows  # the last row of every table is known
+    idx = torch.full((4, t, 1), v - 1, dtype=torch.int32, device=card)
+    idx[1] = v + 5  # clamps to the last row too
+    got = eb.embedding_bag(table, idx, torch.ones((4, t, 1), device=card))
+    assert torch.equal(got, rows.expand(4, t, d))
+
+
+# (B, W, k, weights, gamma): the public op's timed shape with integer
+# weights at three gammas, k past a label tile with float weights, W = 0,
+# one row
+FENNEL_CASES = [(32768, 64, 32, "int", 1.5), (32768, 64, 32, "int", 2.0),
+                (32768, 64, 32, "int", 3.0), (4096, 64, 1000, "float", 1.5),
+                (33, 17, 8, "float", 1.25), (64, 0, 5, "int", 1.5), (1, 3, 2, "float", 2.5)]
+
+
+def _fennel_inputs(b, w, k, weights, card, seed=0):
+    rng = np.random.default_rng(seed)
+    blk = rng.integers(-1, k, (b, w)).astype(np.int32)
+    wts = rng.integers(1, 6, (b, w)) if weights == "int" else rng.random((b, w))
+    wts = (wts * (blk >= 0)).astype(np.float32)
+    loads = (rng.random(k) * 100).astype(np.float32)
+    node_w = rng.integers(1, 4, b).astype(np.float32)
+    return [torch.from_numpy(a).to(card) for a in (blk, wts, loads, node_w)]
+
+
+@pytest.mark.parametrize("b,w,k,weights,gamma", FENNEL_CASES)
+def test_fennel_kernel_matches_plain_on_card(b, w, k, weights, gamma, card):
+    blk, wts, loads, node_w = _fennel_inputs(b, w, k, weights, card, seed=b + w + k)
+    kw = dict(alpha=0.05, gamma=gamma, cap=90.0)  # loads up to 100: some infeasible
+    before = fg.launches
+    best, score = fg.fennel_choose_batch(blk, wts, loads, node_w, **kw)
+    assert fg.launches == before + 1
+    want_best, want_score = fg.fennel_gain_plain(blk, wts, loads, node_w, **kw)
+    assert torch.equal(best, want_best) and torch.equal(score, want_score)
+    again = fg.fennel_choose_batch(blk, wts, loads, node_w, **kw)
+    assert torch.equal(again[0], best) and torch.equal(again[1], score)
+
+
+def test_fennel_kernel_all_infeasible_falls_back_to_least_loaded(card):
+    blk, wts, _, node_w = _fennel_inputs(500, 8, 40, "int", card)
+    loads = torch.full((40,), 80.0, device=card)
+    loads[[7, 30]] = 60.0  # the first minimum is block 7
+    best, score = fg.fennel_choose_batch(blk, wts, loads, node_w, alpha=0.1, gamma=1.5, cap=50.0)
+    assert bool((best == 7).all()) and bool(torch.isneginf(score).all())
+
+
+def test_fennel_kernel_refuses_a_row_past_shared_memory(card):
+    blk, wts, loads, node_w = _fennel_inputs(8, 4, 40000, "int", card)  # 320 KB of row
+    with pytest.raises(ValueError, match="shared memory"):
+        fg.fennel_choose_batch(blk, wts, loads, node_w, alpha=0.1, gamma=1.5, cap=50.0)
+
+
+def test_dlrm_forward_launches_one_bag_kernel_per_forward(card):
+    cfg = dlrm_mlperf.smoke_config()
+    params = dlrm.dlrm_init(torch.Generator(device=card).manual_seed(0), cfg)
+    batch = {k: v.to(card) for k, v in dlrm_mlperf.smoke_batch(cfg).items()}
+    cpu_params = {k: v.cpu() if torch.is_tensor(v) else {n: w.cpu() for n, w in v.items()}
+                  for k, v in params.items()}
+    before = eb.launches
+    logits = dlrm.dlrm_forward(params, batch, cfg)
+    assert eb.launches == before + 1
+    want = dlrm.dlrm_forward(cpu_params, {k: v.cpu() for k, v in batch.items()}, cfg)
+    torch.testing.assert_close(logits.cpu(), want, rtol=1e-5, atol=1e-5)
+    res = serve_dlrm(cfg, batch, iters=3, device=card, params=params)
+    assert eb.launches == before + 1 + res.forwards == before + 5
+    query = {"query_dense": batch["dense"][:1], "query_sparse_idx": batch["sparse_idx"][:1],
+             "query_sparse_mask": batch["sparse_mask"][:1],
+             "candidates": torch.randn((100, cfg.embed_dim), device=card)}
+    dlrm.dlrm_retrieval(params, query, cfg)
+    assert eb.launches == before + 6

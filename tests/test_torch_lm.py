@@ -327,9 +327,10 @@ def test_serve_lm_defaults_to_the_card():
 def test_serve_cli(capsys):
     serve.main(["--device", "cpu", "--batch", "2", "--prompt", "8", "--tokens", "3"])
     assert "arch=h2o-danube-1.8b device=cpu batch=2" in capsys.readouterr().out
-    for arch in ("partition", "dlrm-mlperf"):
-        with pytest.raises(NotImplementedError):
-            serve.main(["--arch", arch, "--device", "cpu"])
+    with pytest.raises(NotImplementedError):
+        serve.main(["--arch", "partition", "--device", "cpu"])
+    serve.main(["--arch", "dlrm-mlperf", "--device", "cpu"])  # ported: serves 16 rows
+    assert capsys.readouterr().out.startswith("dlrm serve: device=cpu batch=16 ")
 
 
 @pytest.mark.parametrize("fn", [serve.serve_lm, tfm.init_cache, lm_common.lm_smoke_decode_state,

@@ -9,11 +9,14 @@ kernel (callers cast to float64 afterwards).
 Replaces `repro/kernels/ell_histogram.py::_histogram_kernel` (wrapper
 `repro/kernels/ops.py::block_histogram`, oracle
 `repro/kernels/ref.py::ell_histogram_ref`).  The kernel,
-`csrc/ell_histogram.cu`, is bound by memory traffic at the main path's
-shapes — B·W·8 bytes read and B·k·4 bytes written — and its design (one
-warp per row and 32-label tile, each lane walking W in order with the sum
-in a register, no atomics, no padding of B, W or k) is described in the
-source.
+`csrc/ell_histogram.cu`, is bound by memory traffic — B·W·8 bytes read and
+B·k·4 bytes written, the output most of it — so it keeps its loads
+independent (16-byte loads of a row's labels and weights, widths 8 to 64
+specialised and unrolled) and writes each thread's 4 adjacent labels with
+one 16-byte streaming store.  Each output element is summed by one thread
+in w order, without atomics, so the kernel agrees with the plain version bit
+for bit.  At the clustering's k = n_pad it stays bound by writing the
+mostly-zero (B, k) output.
 
 `block_histogram` takes the plain version only for tensors on the CPU; for
 CUDA tensors it launches the kernel or raises.  `launches` counts kernel

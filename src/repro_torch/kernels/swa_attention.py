@@ -12,20 +12,37 @@ Replaces `repro/kernels/swa_attention.py::_swa_kernel` and what its wrapper
 `repro/kernels/ref.py::swa_attention_decode_ref`).  The reference slices an
 aligned window of the cache and pads D to 128 lanes before the kernel; the
 kernel here, `csrc/swa_attention.cu`, reads the window's rows straight from
-the cache, pads nothing, and is bound by the bytes of K and V it reads.  Its
-numerics are the Pallas kernel's: float32 products and sums, the scale
-`1 / sqrt(D)` as a Python float, an exact softmax whose denominator is
-floored at 1e-30 (an empty window gives zeros), the output cast to q's
-dtype.
+the cache and pads nothing.  It is bound by the bytes of K and V it reads,
+and reaches that rate only with enough blocks and bytes in flight, so the
+window is split ("flash-decoding"): `split_plan` cuts each row's window
+into chunks so that B·KVH·splits gives every SM several blocks; each block
+streams its chunk's K and V rows through shared memory with asynchronous
+copies and writes the chunk's max, exp-sum and unnormalised output to a
+float32 scratch, and the last block of a row (an integer counter per row)
+merges the row's splits in split order.  bf16 at the LM
+head widths runs on the tensor cores, other shapes on the CUDA cores.
+
+Numerics: a split softmax with a fixed-order combine, not the Pallas
+kernel's single pass.  Float32 sums of exact products (bf16 products on the
+tensor cores, the float32 probabilities split into three bf16 parts that
+sum to them exactly), the scale `1 / sqrt(D)` as a Python float, per chunk
+`m = max s`, `l = Σ exp(s - m)` and `o = Σ exp(s - m)·v`, then
+`out = Σ o_i·exp(m_i - M) / max(Σ l_i·exp(m_i - M), 1e-30)` with
+`M = max m_i` and weight 0 for an empty chunk, so an empty window gives
+zeros; the output is cast to q's dtype once.  It differs from the plain
+version (one softmax over the window) by float32 rounding only, and two
+launches on the same inputs are bit-identical (no float atomics).
 
 `swa_attention_decode` has the reference wrapper's signature without its
 `use_kernel` and `interpret` switches: it takes the plain version only for
 tensors on the CPU, and for CUDA tensors it launches the kernel or raises.
-`launches` counts kernel launches and nothing else.
+`launches` counts wrapper calls that launched the kernel on the card (one
+kernel launch per call), and nothing else.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -36,13 +53,51 @@ launches = 0
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ERR_SHARED_MEMORY = -1
+_ERR_SHAPE = -2
 _MAX_GROUPS = 16
+
+# the split plan (csrc/swa_attention.cu: kTile positions per ring stage)
+TILE = 64
+MIN_CHUNK = 128  # positions: fewer would spend more on the combine than they save
+BLOCKS_PER_SM = 4  # split kernel blocks the plan asks for on every SM
+SCORE_FLOATS = 4096  # chunk * G: the CUDA-core kernel keeps the chunk's scores (16 KB)
+
+
+def split_plan(span: int, rows: int, groups: int, sm_count: int) -> tuple[int, int]:
+    """(splits, chunk) for windows of at most `span` positions over `rows`
+    = B·KVH rows: the fewest splits that give `sm_count` SMs BLOCKS_PER_SM
+    blocks each, with chunks of at least MIN_CHUNK positions and at most
+    SCORE_FLOATS / G; chunks are rounded up to whole tiles, which may leave
+    a few blocks fewer (the serve shape: 32 rows x 16 splits of 256).  Split i of a row covers
+    `[lo + i·chunk, min(hi, lo + (i + 1)·chunk))`; splits·chunk >= span, so
+    every row's `[lo, hi)` is covered once.  A pure function of the shape
+    and the card, so results do not depend on timing."""
+    if span <= 0:
+        return 1, TILE
+    max_chunk = max(TILE, SCORE_FLOATS // groups // TILE * TILE)
+    want = _ceil_div(BLOCKS_PER_SM * sm_count, max(rows, 1))
+    splits = max(1, min(want, _ceil_div(span, MIN_CHUNK)))
+    chunk = min(_ceil_div(_ceil_div(span, splits), TILE) * TILE, max_chunk)
+    return _ceil_div(span, chunk), chunk
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+_plan = functools.lru_cache(maxsize=256)(split_plan)  # a decode step asks once a layer
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def swa_attention_decode_plain(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                                pos: torch.Tensor, *, window: int) -> torch.Tensor:
     """Plain PyTorch version: gathers each row's window of the cache and
-    computes the kernel's float32 arithmetic on it."""
+    takes one float32 softmax over it (the kernel splits the window and
+    agrees with this to float32 rounding)."""
     b, s, kvh, d = k_cache.shape
     span = min(int(window), s)
     if span == 0:
@@ -92,6 +147,24 @@ def _check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
 
 
 _LAUNCH = None
+# per (device, stream): the float32 scratch of the splits' partials and the
+# uint32 counters of the rows' finished splits.  Launches on one stream run
+# in order, so they share both; the counters are zeroed once here and left
+# zeroed by every launch (the last block of a row resets its counter), so a
+# launch needs no memset and no allocation.
+_WORKSPACE: dict[tuple[int, int], tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(index: int, stream: int, floats: int,
+               rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    partial, counters = _WORKSPACE.get((index, stream), (None, None))
+    device = torch.device("cuda", index)
+    if partial is None or partial.numel() < floats:
+        partial = torch.empty(floats, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < rows:
+        counters = torch.zeros(max(rows, 1024), dtype=torch.int32, device=device)
+    _WORKSPACE[(index, stream)] = partial, counters
+    return partial, counters
 
 
 def _launcher():
@@ -99,9 +172,10 @@ def _launcher():
     global _LAUNCH
     if _LAUNCH is None:
         fn = _build.load("swa_attention").swa_attention_launch
-        fn.argtypes = [ctypes.c_void_p] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * 7 + [
             ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p]
+            ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+            ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _LAUNCH = fn
     return _LAUNCH
@@ -135,16 +209,25 @@ def swa_attention_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    splits, chunk = _plan(min(int(window), s), b * kvh, g, _sm_count(index))
     launch = _launcher()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
+        # partial: (B, KVH, splits, G, D + 2)
+        partial, counters = _workspace(index, stream, b * kvh * splits * g * (d + 2), b * kvh)
         err = launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
-                     out.data_ptr(), code, b, s, kvh, g, d, int(window),
-                     1.0 / float(d) ** 0.5, stream)
+                     out.data_ptr(), partial.data_ptr(), counters.data_ptr(), code, b, s, kvh,
+                     g, d, int(window), chunk, splits, 1.0 / float(d) ** 0.5, stream)
     if err == _ERR_SHARED_MEMORY:
         raise ValueError(
-            f"swa_attention_decode: the float32 scores of G={g} query heads over a window of "
-            f"{min(int(window), s)} positions do not fit in a block's shared memory"
+            f"swa_attention_decode: the kernel's ring of {q.dtype} K/V tiles of D={d} does not "
+            f"fit in a block's shared memory"
+        )
+    if err == _ERR_SHAPE:
+        raise ValueError(
+            f"swa_attention_decode: the kernel does not take G={g}, D={d} in {q.dtype} "
+            f"(its P.V columns outnumber a block's threads)"
         )
     if err != 0:
         raise RuntimeError(f"swa_attention launch failed with code {err}")

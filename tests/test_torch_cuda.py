@@ -29,8 +29,12 @@ eb = importlib.import_module("repro_torch.kernels.embedding_bag")
 
 pytestmark = pytest.mark.cuda
 
+# (B, W, k): the reference's test shapes, the main path's, then widths
+# outside the specialised ones, k no multiple of 4 or 32, B no multiple of a
+# block's rows, and a clustering-sized k = n_pad
 SHAPES = [(1, 1, 2), (7, 13, 4), (64, 32, 16), (130, 7, 32), (100, 64, 256),
-          (64, 16, 1000), (65536, 8, 32), (4096, 64, 4096)]
+          (64, 16, 1000), (65536, 8, 32), (4096, 64, 4096), (1001, 8, 30), (333, 24, 2050),
+          (70, 64, 5000), (517, 8, 32800), (129, 16, 36)]
 
 
 @pytest.fixture
@@ -44,6 +48,7 @@ def card():
 def test_kernel_matches_plain_on_card(b, w, k, card):
     rng = np.random.default_rng(b + w + k)
     blk = rng.integers(-1, k, (b, w)).astype(np.int32)
+    blk[::3, ::2] = blk[::3, :1]  # repeated labels within a row
     for wts in (rng.integers(1, 6, (b, w)), rng.random((b, w))):
         wts = (wts * (blk >= 0)).astype(np.float32)
         blk_c, wts_c = torch.from_numpy(blk).to(card), torch.from_numpy(wts).to(card)
@@ -52,13 +57,21 @@ def test_kernel_matches_plain_on_card(b, w, k, card):
         assert eh.launches == before + 1
         # the plain version repeats the kernel's float32 adds in w order
         assert torch.equal(got, eh.ell_histogram_plain(blk_c, wts_c, k))
+        assert torch.equal(got, eh.block_histogram(blk_c, wts_c, k))  # a second launch
 
 
 # (B, S, KVH, G, D, window, pos): ragged pos past the window, pos = 0, a
-# window wider than the cache, D = 64 and 128, G = 1
+# window wider than the cache, D = 64 and 128, G = 1; then windows that
+# cross split boundaries: a window no multiple of the chunk with one empty
+# row among full ones, pos in the middle of a chunk, ragged rows whose later
+# splits are empty, and G = 16 over a window of 8192 (64 splits of 128)
 SWA_SHAPES = [(4, 700, 8, 4, 80, 256, (600, 300, 256, 3)), (3, 64, 8, 4, 80, 4096, (0, 0, 0)),
               (2, 100, 2, 4, 80, 4096, (100, 60)), (2, 300, 4, 4, 64, 128, (300, 7)),
-              (2, 300, 4, 4, 128, 128, (250, 129)), (2, 300, 8, 1, 80, 64, (300, 1))]
+              (2, 300, 4, 4, 128, 128, (250, 129)), (2, 300, 8, 1, 80, 64, (300, 1)),
+              (3, 3000, 8, 4, 80, 2500, (3000, 0, 2999)),
+              (4, 700, 8, 4, 80, 300, (700, 333, 129, 650)),
+              (4, 5000, 2, 4, 80, 4096, (5000, 4100, 1000, 70)),
+              (1, 8192, 1, 16, 128, 8192, (8192,))]
 
 
 def _swa_inputs(b, s, kvh, g, d, pos, dtype, card):
@@ -85,10 +98,27 @@ def test_swa_kernel_matches_plain_on_card(b, s, kvh, g, d, window, pos, dtype, r
     assert torch.equal(got, sw.swa_attention_decode(q, k, v, p, window=window))
 
 
+@pytest.mark.parametrize("dtype,rtol,atol", [(torch.float32, 1e-5, 1e-5),
+                                             (torch.bfloat16, 8e-3, 1e-3)])
+def test_swa_kernel_decode_32k_plan_at_two_rows(dtype, rtol, atol, card, monkeypatch):
+    """decode_32k's plan (4 splits of 1024 over a 32768-row cache, what 1024
+    rows get on 132 SMs) at B = 2, with 64-bit offsets into the cache."""
+    monkeypatch.setattr(sw, "_sm_count", lambda index: 16)
+    assert sw.split_plan(4096, 16, 4, sw._sm_count(0)) == (4, 1024)
+    q, k, v, p = _swa_inputs(2, 32768, 8, 4, 80, (32768, 30000), dtype, card)
+    got = sw.swa_attention_decode(q, k, v, p, window=4096)
+    torch.testing.assert_close(got, sw.swa_attention_decode_plain(q, k, v, p, window=4096),
+                               rtol=rtol, atol=atol)
+    assert torch.equal(got, sw.swa_attention_decode(q, k, v, p, window=4096))
+
+
 def test_swa_kernel_refuses_what_it_cannot_run(card):
+    # G = 16 over a window of 8192 was refused for shared memory by the
+    # unsplit kernel; the split kernel keeps only a chunk's scores and runs it
     q, k, v, p = _swa_inputs(1, 8192, 1, 16, 128, (8192,), torch.float32, card)
-    with pytest.raises(ValueError, match="shared memory"):  # 16 x 8192 float32 scores
-        sw.swa_attention_decode(q, k, v, p, window=8192)
+    torch.testing.assert_close(sw.swa_attention_decode(q, k, v, p, window=8192),
+                               sw.swa_attention_decode_plain(q, k, v, p, window=8192),
+                               rtol=1e-5, atol=1e-5)
     q, k, v, p = _swa_inputs(1, 16, 1, 17, 64, (8,), torch.float32, card)
     with pytest.raises(ValueError, match="query heads"):
         sw.swa_attention_decode(q, k, v, p, window=8)

@@ -27,6 +27,11 @@ J = jnp.asarray
 
 # the shapes of tests/test_kernels.py::test_histogram_shapes, k=1000 too
 SHAPES = [(1, 1, 2), (7, 13, 4), (64, 32, 16), (130, 7, 32), (100, 64, 256), (64, 16, 1000)]
+# the card kernel's edge shapes: widths outside its specialised ones (8, 16,
+# 32, 64), k no multiple of 4 or 32, B no multiple of a block's rows, and a
+# clustering-sized label domain
+EDGE_SHAPES = [(1001, 8, 30), (333, 24, 2050), (70, 64, 500), (129, 16, 36), (65, 8, 4100),
+               (3, 128, 7)]
 
 
 def _inputs(b, w, k, weights, seed=0):
@@ -48,7 +53,7 @@ def _check(got, want, weights):
 
 
 @pytest.mark.parametrize("weights", ["int", "float"])
-@pytest.mark.parametrize("b,w,k", SHAPES)
+@pytest.mark.parametrize("b,w,k", SHAPES + EDGE_SHAPES)
 def test_plain_matches_jax_oracle(b, w, k, weights):
     blk, wts = _inputs(b, w, k, weights)
     got = eh.ell_histogram_plain(torch.from_numpy(blk), torch.from_numpy(wts), k)

@@ -19,6 +19,7 @@ import torch
 import repro.configs.h2o_danube_1_8b as ref_danube
 import repro.configs.lm_common as ref_lm_common
 import repro.kernels.ops as ref_ops
+import repro.kernels.ref as ref_kref
 import repro.models.attention as ref_attn
 import repro.models.common as ref_common
 import repro.models.transformer as ref_tfm
@@ -90,6 +91,100 @@ def test_swa_wrapper_rejects_bad_inputs():
                                 torch.zeros(2, dtype=torch.int32), window=4)
     with pytest.raises(ValueError, match="window"):
         sw.swa_attention_decode(q, kc, kc, torch.zeros(2, dtype=torch.int32), window=-1)
+
+
+# (span, B·KVH rows, G, SMs): the serve shape, decode_32k, G = 16 over 8192,
+# a window no multiple of a tile, one position, an empty window, few rows
+PLAN_CASES = [(4096, 32, 4, 132), (4096, 1024, 4, 132), (8192, 1, 16, 132),
+              (2500, 24, 4, 132), (1, 8, 1, 132), (0, 8, 4, 132), (300, 4, 3, 2)]
+
+
+@pytest.mark.parametrize("span,rows,groups,sms", PLAN_CASES)
+def test_swa_split_plan_covers_every_window_once(span, rows, groups, sms):
+    splits, chunk = sw.split_plan(span, rows, groups, sms)
+    assert splits >= 1 and chunk >= sw.TILE and chunk % sw.TILE == 0
+    assert groups * chunk <= max(sw.SCORE_FLOATS, groups * sw.TILE)  # scores fit
+    assert splits * chunk >= span and (splits - 1) * chunk < max(span, 1)  # no idle tail
+    # every row's [lo, hi), ragged pos included, is covered exactly once (a
+    # window of `span` in a cache of 2·span + 3)
+    seq = 2 * span + 3
+    for pos in range(0, seq + 3, max(1, span // 7)):
+        lo, hi = max(0, pos - span), min(pos, seq)
+        covered = np.zeros(max(hi - lo, 0), np.int64)
+        for i in range(splits):
+            a, z = lo + i * chunk, min(hi, lo + (i + 1) * chunk)
+            covered[max(a, lo) - lo:max(z, a) - lo] += 1
+        assert (covered == 1).all()
+
+
+def test_swa_split_plan_fills_the_card():
+    assert sw.split_plan(4096, 32, 4, 132) == (16, 256)  # serve: 512 blocks
+    assert sw.split_plan(4096, 1024, 4, 132) == (4, 1024)  # decode_32k
+    splits, chunk = sw.split_plan(4096, 32, 4, 66)  # half the SMs: half the splits
+    assert (splits, chunk) == (8, 512)
+
+
+def _split_combine(q, kc, vc, pos, window, splits, chunk):
+    """The kernels' arithmetic in torch float32: per split the chunk's max m,
+    l = Σ exp(s - m) and o = Σ exp(s - m)·v, then the combine in split order
+    with weight 0 for an empty split."""
+    b, s, kvh, d = kc.shape
+    scale = 1.0 / float(d) ** 0.5
+    pos = pos.long()
+    lo, hi = (pos - window).clamp(min=0), pos.clamp(max=s)
+    rows = torch.arange(b)[:, None]
+    ms, ls, os_ = [], [], []
+    for i in range(splits):
+        idx = lo[:, None] + i * chunk + torch.arange(chunk)
+        valid = (idx < hi[:, None])[:, None, None, :]
+        kw, vw = (c[rows, idx.clamp(max=s - 1)].float() for c in (kc, vc))
+        sc = torch.einsum("bhgd,bwhd->bhgw", q.float(), kw) * scale
+        sc = torch.where(valid, sc, -torch.inf)
+        m = sc.amax(-1)
+        e = torch.where(valid, torch.exp(sc - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(e.sum(-1))
+        os_.append(torch.einsum("bhgw,bwhd->bhgd", e, vw))
+    big = torch.stack(ms).amax(0)
+    den = torch.zeros_like(big)
+    acc = torch.zeros_like(os_[0])
+    for m, l, o in zip(ms, ls, os_):
+        w = torch.where(m == -torch.inf, 0.0, torch.exp(m - big))
+        den = den + l * w
+        acc = acc + o * w[..., None]
+    return (acc / den.clamp(min=1e-30)[..., None]).to(q.dtype)
+
+
+# (d_head, cache length, window, pos per row): ragged rows with empty splits,
+# pos mid-chunk, one empty row among full ones, every row empty, window 0
+SPLIT_CASES = [(80, 700, 256, (600, 300, 256, 3)), (64, 300, 200, (300, 0, 150, 77)),
+               (80, 64, 4096, (0, 0, 0, 0)), (80, 64, 0, (10, 20, 30, 64))]
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 8])
+@pytest.mark.parametrize("dh,s,win,pos", SPLIT_CASES)
+def test_swa_split_combine_matches_the_jax_oracle(dh, s, win, pos, splits):
+    rng = np.random.default_rng(dh + s + win + splits)
+    b, kvh, g = len(pos), 2, 4
+    q = rng.standard_normal((b, kvh, g, dh)).astype(np.float32)
+    kc = rng.standard_normal((b, s, kvh, dh)).astype(np.float32)
+    vc = rng.standard_normal((b, s, kvh, dh)).astype(np.float32)
+    p = np.asarray(pos, np.int32)
+    span = min(win, s)
+    chunk = max(1, -(-span // splits))
+    got = _split_combine(T(q), T(kc), T(vc), T(p), win, splits, chunk)
+    assert not torch.isnan(got).any()
+    want = ref_kref.swa_attention_decode_ref(J(q), J(kc.transpose(0, 2, 1, 3)),
+                                             J(vc.transpose(0, 2, 1, 3)), J(p),
+                                             jnp.zeros(b, jnp.int32), window=win)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    empty = np.minimum(p, s) <= np.maximum(p - win, 0)
+    assert not got[torch.from_numpy(empty)].any()  # exact zeros where the window is empty
+    # the plan's own split count agrees too
+    plan_splits, plan_chunk = sw.split_plan(span, b * kvh, g, 132)
+    np.testing.assert_allclose(
+        _split_combine(T(q), T(kc), T(vc), T(p), win, plan_splits, plan_chunk).numpy(),
+        np.asarray(want), rtol=1e-5, atol=1e-6)
 
 
 # ------------------------------------------------------- attention pieces

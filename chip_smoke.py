@@ -37,17 +37,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
 5. full       the BuffCut driver at full width: grid mesh 1024x1024
               (n = 2^20) with the paper's §4 settings (k=32, eps=0.03,
               Q=262144, delta=32768, HAA) on the device engine; requires
-              valid labels, an exact streamed cut and histogram kernel
-              launches on this path;
+              valid labels, an exact streamed cut, histogram kernel
+              launches on this path and one sweep kernel launch per device
+              V-cycle;
 6. profile    per-stage time of one full-width batch V-cycle, each stage
-              synchronized, and the initial partition's step count;
+              synchronized, and the initial partition's step count; keeps
+              the coarsest level for phase 13;
 7. serve      `repro_torch.launch.serve.serve_lm` at h2o-danube-1.8b's
               full width (24 layers, d=2560, bf16, random weights from a
               seeded generator): batch 4, an 8192-token prompt, 32 greedy
               decode steps; requires finite logits and 24 x 32 launches of
               the swa_attention kernel; reports prefill time, decode tokens/s
               and peak memory, and profiles one decode step (the kernel's
-              share of it and its time per launch);
+              share of it and its time per launch; logged as not measured
+              where no profiler trace of it is complete);
 8. decode     the same model in float32 with TF32 off: batch 1, a
               4608-token prompt (past the 4096 window) and 4 decode steps;
               decode logits (the kernel) must equal forward_train's (plain
@@ -58,10 +61,12 @@ Phases, each of which fails the run (non-zero exit, no result line):
               with L = 1 (the path) and L = 2 (weighted), indices -1 and V
               clamping; times kernel, plain version and one
               torch.nn.functional.embedding_bag call at both batches;
-10. fennel    the fennel_gain kernel held bit for bit (best and score)
-              against its plain version at (B, W, k) = (32768, 64, 32) with
-              integer weights and gamma 1.5, 2 and 3, at k = 1000 with float
-              weights, and with no feasible block; times it at the first;
+10. fennel    the fennel_gain kernels held bit for bit (best and score)
+              against their plain version at (B, W, k) = (32768, 64, 32)
+              with integer and fractional weights, at k = 1000 and at W = 6,
+              each at gamma 1.25, 1.5, 2, 2.5, 3 and 4, and with no feasible
+              block; times the call (device_ms: one launch), warm and with
+              L2 flushed, at the first;
 11. ops       the four public ops of `repro_torch.kernels`, each called once
               at a main-path shape: each launches its kernel exactly once;
 12. dlrm      `serve_dlrm` at dlrm-mlperf's full_config on the card at
@@ -69,19 +74,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
               forwards each after one warm-up, exactly one bag launch per
               forward; the first 64 logits against a float64 forward on the
               CPU (those rows' gathered table rows and the MLP weights) at
-              rtol 1e-4 and atol 1e-4 of the largest logit; a profiled
-              forward (the kernel's share); dlrm_retrieval at
-              retrieval_cand (10^6 candidates).
+              rtol 1e-4 and atol 1e-4 of the largest logit; one forward's
+              device time and its bag call's (CUDA events), and its device
+              rows where a profiler trace is complete; dlrm_retrieval at
+              retrieval_cand (10^6 candidates);
+13. sweep     the initial Fennel sweep of phase 6's coarsest level (the
+              full-width batch: ~12k free nodes, k = 32): the sweep kernel
+              held against its plain version (the eager step loop) bit for
+              bit, labels and loads, and timed: the call (two clones and the
+              launch), the `_initial_fennel` stage and the plain version once.
 
 Kernel times are device times from CUDA events around calls enqueued
-behind a spin kernel (`device_ms`); profiler traces give only per-kernel
-breakdowns (`device_rows`).
+behind a spin kernel (`device_ms`); `--kernels-only` also reads the kernel
+alone from its rows in a profiler trace (`device_rows`), which an earlier
+tree's fennel_gain call needs (it enqueued torch ops beside the kernel).
+Profiler traces late in a long run can come back incomplete; no check
+rests on them, and the rows of such a run are logged as not measured.
 
-`--kernels-only` builds and runs only the timings of ell_histogram and
-swa_attention, alone (phase 2's times) and on their paths (phase 4 and
-phase 7), and prints no result line; with `--src` it takes repro_torch from
-another tree, so that an earlier commit (unpacked with `git archive` into a
-directory `.gitignore` lists) is timed by the same code on the same card.
+`--kernels-only` builds and runs only the timings of the fennel_gain kernel
+(phase 10's) and of the initial sweep on its path (phase 6's stage split,
+then phase 13's times where the tree has the sweep kernel; an earlier tree's
+eager sweep is timed as its `_initial_fennel` stage), and prints no result
+line; with `--src` it takes repro_torch from another tree, so that an
+earlier commit (unpacked with `git archive` into a directory `.gitignore`
+lists) is timed by the same code on the same card.
 
 The port has no host fallback: an error of a device engine fails the run.
 
@@ -143,11 +159,21 @@ SWA_KERNEL_ROW = "swa_"
 # dlrm-mlperf's serve shapes (configs/dlrm_mlperf.py SHAPES)
 DLRM_P99, DLRM_BULK, DLRM_CANDIDATES = 512, 262144, 1_000_000
 DLRM_ITERS = 10
-# (B, W, k, weights, gamma): the public op's shape at three gammas, then k
-# past a label tile; FENNEL_CASES[0] is timed
-FENNEL_CASES = [(32768, 64, 32, "int", 1.5), (32768, 64, 32, "int", 2.0),
-                (32768, 64, 32, "int", 3.0), (32768, 64, 1000, "float", 1.5)]
+# (B, W, k, weights): the public op's shape (the staged kernel) with integer
+# and fractional weights, then k past a warp and W no multiple of 4 (the
+# general kernel); each at every gamma of FENNEL_GAMMAS, the first timed at
+# FENNEL_GAMMAS[1]
+FENNEL_SHAPES = [(32768, 64, 32, "int"), (32768, 64, 32, "float"), (32768, 64, 1000, "float"),
+                 (32768, 6, 32, "float")]
+FENNEL_GAMMAS = (1.25, 1.5, 2.0, 2.5, 3.0, 4.0)
 FENNEL_ALPHA, FENNEL_CAP = 0.05, 90.0
+# the sweep's dependent chain a step, a floor: one on-chip read of a
+# neighbour's label written a step earlier, then the five shuffle rounds of
+# the argmax over k = 32 blocks, each a dependent round trip of ~30 SM
+# cycles (the update of one load overlaps the next step's reads)
+SWEEP_STEP_CYCLES = 6 * 30
+# float64 rate of one H100 SXM outside the tensor cores (NVIDIA data sheet)
+FP64_OPS_PER_S = 34e12
 
 
 def log(msg: str) -> None:
@@ -259,14 +285,17 @@ def host_us(fn, calls: int = 50) -> float:
     return times[len(times) // 2]
 
 
-def device_rows(fn, iters: int, want: str, expect: int, attempts: int = 5) -> dict:
+def device_rows(fn, iters: int, want: str, expect: int, attempts: int = 3) -> dict | None:
     """{row name: device ms per call} over `iters` calls of `fn`, from a
     torch.profiler trace of device activity only (each row one kernel,
     memset or copy, none counted twice).  On the card, traces late in a
     long run have come back empty or missing records, so a trace counts
     only when it holds `expect` launches of the kernel named `want`; one
     that does not is logged and taken again.  Other rows may still miss a
-    few records, which understates device time a little."""
+    few records, which understates device time a little.  None when no
+    trace in `attempts` was complete: the rows are then not measured, and
+    no check of the run rests on them (the launch counts are the wrappers'
+    own, and every time a result needs is taken with CUDA events)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -282,7 +311,9 @@ def device_rows(fn, iters: int, want: str, expect: int, attempts: int = 5) -> di
             return {e.key: e.self_device_time_total / iters / 1e3 for e in avgs}
         log(f"[env] profiler trace {attempt} of {attempts} ({iters} calls) holds {found} "
             f"launches of {want}, expected {expect}")
-    raise AssertionError(f"no profiler trace in {attempts} attempts held every {want} launch")
+    log(f"[env] no profiler trace in {attempts} attempts held every {want} launch: "
+        f"device rows not measured")
+    return None
 
 
 # ------------------------------------------------------------------ phases
@@ -465,8 +496,10 @@ def swa_time(b: int, s: int, pos, masked_sdpa: bool) -> dict:
     host = host_us(calls["kernel"])
     # the launch's kernels one by one, from a profiler trace
     rows = device_rows(calls["kernel"], 10, want=SWA_KERNEL_ROW, expect=10)
-    log(f"[kernels] swa_attention B={b} S={s}: kernels of one launch (profiler): "
-        + "; ".join(f"{key.split('(')[0][-40:]} {ms * 1e3:.2f} us" for key, ms in rows.items()))
+    if rows is not None:
+        log(f"[kernels] swa_attention B={b} S={s}: kernels of one launch (profiler): "
+            + "; ".join(f"{key.split('(')[0][-40:]} {ms * 1e3:.2f} us"
+                        for key, ms in rows.items()))
     bnd, by = swa_bound_ms(kvh, g, d, window, s, pos, 2)
     masked = f", sdpa with a mask over the cache {dev['sdpa_masked']:.5f} ms" if masked_sdpa else ""
     log(f"[kernels] swa_attention B={b} S={s} pos={pos[0]} bf16: kernel {dev['kernel']:.5f} ms "
@@ -668,38 +701,57 @@ def phase_auto(side: int) -> float:
     return worst
 
 
-def phase_full(side: int) -> int:
+def phase_full(side: int) -> tuple[int, int]:
+    """Returns the histogram and the sweep launches of the run."""
     import numpy as np
 
+    import repro_torch.core.multilevel_torch as mlt
     from repro_torch.core import buffcut_partition
     from repro_torch.core.metrics import cut_ratio, edge_cut
     from repro_torch.graphs import grid_mesh_graph
     from repro_torch.kernels import ell_histogram as eh
+    from repro_torch.kernels import fennel_gain as fg
     from repro_torch.kernels import swa_attention as sw
 
     g = grid_mesh_graph(side)
     cfg = full_width_config()
-    eh.launches = sw.launches = 0
-    block, stats = buffcut_partition(g, cfg)
-    launches, swa_launches = eh.launches, sw.launches
+    vcycles = []
+    engine = mlt.multilevel_partition_torch
+
+    def counted(*a, **kw):
+        vcycles.append(1)
+        return engine(*a, **kw)
+
+    mlt.multilevel_partition_torch = counted
+    try:
+        eh.launches = sw.launches = fg.sweep_launches = 0
+        block, stats = buffcut_partition(g, cfg)
+        launches, swa_launches, sweeps = eh.launches, sw.launches, fg.sweep_launches
+    finally:
+        mlt.multilevel_partition_torch = engine
     check(block.shape == (g.n,) and bool((block >= 0).all()) and bool((block < cfg.k).all()),
           "labels outside [0, k)")
     cut = edge_cut(g, block)
     check(stats.cut_weight == cut, f"streamed cut {stats.cut_weight} != edge_cut {cut}")
     check(launches > 0, "the full-width run launched no ell_histogram kernel")
+    check(sweeps == len(vcycles) > 0,
+          f"{sweeps} fennel_sweep launches in {len(vcycles)} device V-cycles, expected one each")
     loads = np.bincount(block, minlength=cfg.k)
     check(loads.max() <= np.ceil(1.03 * g.n / cfg.k), "balance cap violated")
     log(f"[full] grid_mesh_graph({side}): n={g.n} m={g.m} batches={stats.n_batches} "
         f"cut_ratio={cut_ratio(g, block):.6f} balance={stats.balance:.6f} "
         f"runtime_s={stats.runtime_s:.3f} ml_time_s={stats.ml_time_s:.3f} "
         f"nodes_per_s={g.n / stats.runtime_s:.0f} ell_histogram_launches={launches} "
+        f"fennel_sweep_launches={sweeps} (device V-cycles {len(vcycles)}) "
         f"swa_attention_launches={swa_launches}")
-    return launches
+    return launches, sweeps
 
 
-def phase_profile(side: int) -> None:
+def phase_profile(side: int):
     """Device time per V-cycle stage on one full-width batch: each stage
-    function is wrapped with synchronized timers for this one call."""
+    function is wrapped with synchronized timers for this one call.
+    Returns the arguments of its `_initial_fennel` call (the coarsest
+    level)."""
     import torch
 
     import repro_torch.core.multilevel_torch as mlt
@@ -716,11 +768,13 @@ def phase_profile(side: int) -> None:
     originals = {s: getattr(mlt, s) for s in stages}
 
     fennel_steps = []
+    coarsest = []
 
     def wrap(name, fn):
         def timed(*a, **kw):
             if name == "_initial_fennel":  # one sequential step per free node
                 fennel_steps.append(inspect.signature(fn).bind(*a, **kw).arguments["n_free"])
+                coarsest.append((a, kw))
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out = fn(*a, **kw)
@@ -744,6 +798,7 @@ def phase_profile(side: int) -> None:
     parts = " ".join(f"{s.lstrip('_')}={spent[s] * 1e3:.2f}ms/{calls[s]}" for s in stages)
     log(f"[profile] one batch (n={model.graph.n}) V-cycle {total * 1e3:.2f} ms: {parts}; "
         f"initial_fennel steps (coarsest free nodes) {fennel_steps}")
+    return coarsest[0]
 
 
 def phase_serve() -> int:
@@ -820,14 +875,18 @@ def phase_serve() -> int:
         # splits, and the last block of a row merges them
         by_name = device_rows(lambda: tfm.forward_decode(params, tok, cache, cfg), steps,
                               want=SWA_KERNEL_ROW, expect=steps * cfg.n_layers)
-    busy = sum(by_name.values())
-    kernel = sum(t for k, t in by_name.items() if SWA_KERNEL_ROW in k)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    log(f"[serve] one decode step at pos {SERVE_PROMPT + SERVE_TOKENS - 1}: wall {wall:.3f} ms, "
-        f"device busy {busy:.3f} ms (idle share {1 - busy / wall:.3f}), swa_attention "
-        f"{kernel:.3f} ms = {kernel / busy:.3f} of device time, "
-        f"{kernel / cfg.n_layers * 1e3:.2f} us per launch; top device rows: "
-        + "; ".join(f"{k[:60]} {t:.3f} ms" for k, t in top))
+    if by_name is None:
+        log(f"[serve] one decode step at pos {SERVE_PROMPT + SERVE_TOKENS - 1}: wall {wall:.3f} "
+            f"ms; device rows not measured")
+    else:
+        busy = sum(by_name.values())
+        kernel = sum(t for k, t in by_name.items() if SWA_KERNEL_ROW in k)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        log(f"[serve] one decode step at pos {SERVE_PROMPT + SERVE_TOKENS - 1}: wall {wall:.3f} "
+            f"ms, device busy {busy:.3f} ms (idle share {1 - busy / wall:.3f}), swa_attention "
+            f"{kernel:.3f} ms = {kernel / busy:.3f} of device time, "
+            f"{kernel / cfg.n_layers * 1e3:.2f} us per launch; top device rows: "
+            + "; ".join(f"{k[:60]} {t:.3f} ms" for k, t in top))
     del params, cache, res
     torch.cuda.empty_cache()
     return launches
@@ -875,8 +934,13 @@ def phase_decode_vs_train() -> None:
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     """(least ms, what bounds it) at the card's byte rate and float32 rate."""
+    return bound_at(bytes_moved, ops, FP32_OPS_PER_S)
+
+
+def bound_at(bytes_moved: float, ops: float, ops_per_s: float) -> tuple[float, str]:
+    """(least ms, what bounds it) at the card's byte rate and `ops_per_s`."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -1014,23 +1078,71 @@ def fennel_inputs(b: int, w: int, k: int, weights: str, seed: int):
     return [torch.from_numpy(a).cuda() for a in (blk, wts, loads, node_w)]
 
 
+def fennel_time(b: int, w: int, k: int, weights: str, gamma: float, profile: bool) -> dict:
+    """Device times (ms) at one shape: the whole call (`device_ms`: what
+    the wrapper enqueues, one launch on this tree), the same with L2 flushed
+    before each call, its plain version, and the bound.  With `profile`, the
+    kernel alone is also read from its profiler rows (an earlier tree's call
+    also enqueued the penalty's torch ops); without, or when no trace is
+    complete, the kernel's time is the call's (late in a long run profiler
+    traces come back empty).  No
+    single library call fuses a histogram with a masked argmax."""
+    import torch
+
+    from repro_torch.kernels import fennel_gain as fg
+
+    args = fennel_inputs(b, w, k, weights, seed=0)
+    kw = dict(alpha=FENNEL_ALPHA, gamma=gamma, cap=FENNEL_CAP)
+
+    def call():
+        return fg.fennel_choose_batch(*args, **kw)
+
+    call_ms = device_ms(call)
+    kernel = call_ms
+    rows = device_rows(call, 10, want="fennel_gain", expect=10) if profile else None
+    if rows is not None:
+        kernel = sum(ms for key, ms in rows.items() if "fennel_gain" in key)
+    flush = torch.empty(2**24, device="cuda")
+    cold = device_ms(call, samples=20, reps=1, before=flush.zero_)
+    del flush
+    plain_ms = device_ms(lambda: fg.fennel_gain_plain(*args, **kw))
+    wall = time_cuda(call)
+    host = host_us(call)
+    valid = int((args[0] >= 0).sum())
+    # read the rows, loads and node weights once, write best and score;
+    # one add per valid entry, then an add, a compare, a subtract and an
+    # argmax compare per (row, block)
+    bnd, by = bound(b * w * 8 + k * 4 + b * 4 + b * 8, valid + 4 * b * k)
+    log(f"[fennel] fennel_gain {(b, w, k)} {weights} weights, gamma={gamma}: kernel "
+        f"{kernel * 1e3:.2f} us ({'profiler rows' if rows else 'the call'}), "
+        f"the call {call_ms * 1e3:.2f} us warm, {cold * 1e3:.2f} us with L2 flushed "
+        f"(event-timed call {wall * 1e3:.2f} us, host time per call {host:.2f} us), plain "
+        f"{plain_ms:.5f} ms; bound {bnd * 1e3:.3f} us ({by}); kernel at {bnd / kernel:.3f} of "
+        f"the bound")
+    return {"ms": kernel, "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by}
+
+
 def phase_fennel_kernel() -> dict:
     import torch
 
     from repro_torch.kernels import fennel_gain as fg
 
-    for i, (b, w, k, weights, gamma) in enumerate(FENNEL_CASES):
+    for i, (b, w, k, weights) in enumerate(FENNEL_SHAPES):
         args = fennel_inputs(b, w, k, weights, seed=i)
-        kw = dict(alpha=FENNEL_ALPHA, gamma=gamma, cap=FENNEL_CAP)
-        best, score = fg.fennel_choose_batch(*args, **kw)
-        want_best, want_score = fg.fennel_gain_plain(*args, **kw)
-        torch.cuda.synchronize()
-        check(torch.equal(best, want_best) and torch.equal(score, want_score),
-              f"fennel_gain differs from its plain version at {(b, w, k, weights, gamma)}")
+        args[0][::5] = -1  # rows of only padding
+        args[1][::5] = 0.0
+        for gamma in FENNEL_GAMMAS:
+            kw = dict(alpha=FENNEL_ALPHA, gamma=gamma, cap=FENNEL_CAP)
+            best, score = fg.fennel_choose_batch(*args, **kw)
+            want_best, want_score = fg.fennel_gain_plain(*args, **kw)
+            torch.cuda.synchronize()
+            check(torch.equal(best, want_best) and torch.equal(score, want_score),
+                  f"fennel_gain differs from its plain version at {(b, w, k, weights, gamma)}")
         infeasible = int(torch.isneginf(score).sum())
-        log(f"[fennel] fennel_gain (B={b}, W={w}, k={k}) {weights} weights, gamma={gamma}: best "
-            f"and score equal to the plain version bit for bit ({infeasible} rows with no "
-            f"feasible block)")
+        log(f"[fennel] fennel_gain (B={b}, W={w}, k={k}) {weights} weights, every fifth row "
+            f"padding only: best and score equal to the plain version bit for bit at gamma "
+            f"{', '.join(map(str, FENNEL_GAMMAS))} ({infeasible} rows with no feasible block at "
+            f"the last)")
     blk, wts, _, node_w = fennel_inputs(4096, 64, 40, "int", seed=9)
     loads = torch.full((40,), 95.0, device="cuda")
     loads[[7, 30]] = 91.0
@@ -1043,21 +1155,6 @@ def phase_fennel_kernel() -> dict:
     log("[fennel] no feasible block: every row takes block 7 (the first least-loaded) with "
         "score -inf, as the plain version")
 
-    b, w, k, weights, gamma = FENNEL_CASES[0]
-    args = fennel_inputs(b, w, k, weights, seed=0)
-    kw = dict(alpha=FENNEL_ALPHA, gamma=gamma, cap=FENNEL_CAP)
-    # the call's device time: the (k,) penalty's few torch ops, then the kernel
-    kernel_ms = device_ms(lambda: fg.fennel_choose_batch(*args, **kw))
-    plain_ms = device_ms(lambda: fg.fennel_gain_plain(*args, **kw))
-    wall = time_cuda(lambda: fg.fennel_choose_batch(*args, **kw))
-    valid = int((args[0] >= 0).sum())
-    # read the rows, loads and node weights once, write best and score;
-    # one add per valid entry, then an add, a compare, a subtract and an
-    # argmax compare per (row, block)
-    bnd, by = bound(b * w * 8 + k * 4 + b * 4 + b * 8, valid + 4 * b * k)
-    log(f"[fennel] fennel_gain {(b, w, k)}: kernel {kernel_ms:.5f} ms (the call's device time, "
-        f"penalty ops included; event-timed call {wall:.5f} ms), plain {plain_ms:.5f} ms, no "
-        f"single library call computes it; bound {bnd * 1e3:.3f} us ({by})")
     return {
         "name": "fennel_gain",
         "route": "cuda",
@@ -1065,10 +1162,117 @@ def phase_fennel_kernel() -> dict:
         "replaces": "src/repro/kernels/fennel_gain.py:118",
         "launches": 0,
         "max_abs_err": 0.0,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bnd,
-        "bound_by": by,
+        **fennel_time(*FENNEL_SHAPES[0], FENNEL_GAMMAS[1], profile=False),
+        "library_ms": None,
+    }
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def sweep_stage_ms(coarsest, reps: int = 5) -> float:
+    """Median host ms of `_initial_fennel` on phase 6's coarsest level,
+    synchronized: the preparation (sort, searchsorted) and the sweep."""
+    import torch
+
+    import repro_torch.core.multilevel_torch as mlt
+
+    a, kw = coarsest
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mlt._initial_fennel(*a, **kw)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def sweep_time(coarsest, plain: bool, profile: bool) -> dict:
+    """The sweep on phase 6's coarsest level: held against its plain
+    version (when `plain`), and timed — the call (`device_ms`: two clones
+    of labels and loads, and the launch), with `profile` the kernel alone
+    (its profiler rows; without, or when no trace is complete, the kernel's
+    time is the call's), and the
+    whole `_initial_fennel` stage; its bounds."""
+    import torch
+
+    import repro_torch.core.multilevel_torch as mlt
+    from repro_torch.kernels import fennel_gain as fg
+
+    a, kw = coarsest
+    seen = []
+    sweep = mlt.fennel_sweep
+
+    def record(*x, **y):
+        seen.append((x, y))
+        return sweep(*x, **y)
+
+    mlt.fennel_sweep = record
+    try:
+        labels, loads = mlt._initial_fennel(*a, **kw)
+    finally:
+        mlt.fennel_sweep = sweep
+    sa, skw = seen[0]
+    node_w, order, indptr, _, loads0, n_free = sa[3:]
+    out = {"plain_ms": None, "max_abs_err": 0.0}
+    if plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_labels, want_loads = fg.fennel_sweep_plain(*sa, **skw)
+        torch.cuda.synchronize()
+        out["plain_ms"] = (time.perf_counter() - t0) * 1e3
+        out["max_abs_err"] = float((loads - want_loads).abs().max())
+        check(torch.equal(labels, want_labels) and torch.equal(loads, want_loads),
+              f"fennel_sweep differs from its plain version on the coarsest level "
+              f"({int((labels != want_labels).sum())} labels, loads max abs err "
+              f"{out['max_abs_err']:g})")
+        log(f"[sweep] coarsest level: labels and loads equal to the plain version's bit for bit "
+            f"(plain {out['plain_ms']:.2f} ms)")
+
+    def call():
+        return fg.fennel_sweep(*sa, **skw)
+
+    call_ms = device_ms(call, samples=3, reps=3)
+    kernel = call_ms
+    rows = device_rows(call, 3, want="fennel_sweep", expect=3) if profile else None
+    if rows is not None:
+        kernel = sum(ms for key, ms in rows.items() if "fennel_sweep" in key)
+    stage = sweep_stage_ms(coarsest)
+    n_pad, k = node_w.shape[0], loads0.shape[0]
+    seg = (indptr[order[:n_free] + 1] - indptr[order[:n_free]])
+    entries = int(seg.sum())
+    # each free node's segment (dst, weight), its order, indptr pair and
+    # weight read once, the labels read and written, the loads; an add and
+    # a compare per entry, four float64 operations per (step, block)
+    bnd, by = bound_at(entries * 16 + n_free * 32 + n_pad * 16 + k * 16,
+                       2 * entries + 4 * n_free * k, FP64_OPS_PER_S)
+    clock = sm_clock_hz()
+    chain = n_free * SWEEP_STEP_CYCLES / clock * 1e3
+    log(f"[sweep] coarsest level n_pad={n_pad}, n_free={n_free}, k={k}, {entries} segment "
+        f"entries (longest {int(seg.max())}): kernel {kernel:.4f} ms "
+        f"({kernel / n_free * 1e6:.1f} ns a step), the call {call_ms:.4f} ms, the "
+        f"_initial_fennel stage {stage:.4f} ms; bound {bnd * 1e3:.3f} us ({by}), dependent "
+        f"chain {chain:.4f} ms ({SWEEP_STEP_CYCLES} cycles a step at {clock / 1e9:.3f} GHz); "
+        f"kernel from {'profiler rows' if rows else 'the call'}")
+    return {**out, "ms": kernel, "bound_ms": bnd, "bound_by": by}
+
+
+def phase_sweep(coarsest, launches: int) -> dict:
+    return {
+        "name": "fennel_sweep",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fennel_gain.cu",
+        "replaces": "src/repro/core/multilevel_jax.py:483",
+        "replaces_kind": "jax.lax.fori_loop (_initial_fennel), not a Pallas kernel",
+        "launches": launches,
+        **sweep_time(coarsest, plain=True, profile=False),
         "library_ms": None,
     }
 
@@ -1086,8 +1290,8 @@ def phase_ops(cfg, params) -> dict:
     eb = importlib.import_module("repro_torch.kernels.embedding_bag")
     hb, hw, hk = HIST_SHAPES[0]
     hist_in = hist_inputs(hb, hw, hk, seed=0, integer=True)
-    _, _, _, weights, gamma = FENNEL_CASES[0]
-    fennel_in = fennel_inputs(*FENNEL_CASES[0][:4], seed=0)
+    gamma = FENNEL_GAMMAS[1]
+    fennel_in = fennel_inputs(*FENNEL_SHAPES[0], seed=0)
     idx, mask = bag_inputs(cfg, DLRM_P99, 1, seed=3, weighted=False)
     s = SWA_SHAPES[0][1]
     swa_in = swa_inputs(SERVE_BATCH, s, 8, 4, 80, (s - 1,) * SERVE_BATCH, torch.bfloat16, seed=4)
@@ -1179,16 +1383,24 @@ def phase_dlrm(cfg, params) -> int:
                 dlrm_forward(params, inputs, cfg)
                 torch.cuda.synchronize()
                 wall = (time.perf_counter() - t0) * 1e3
+                # device times from CUDA events: the forward, and the bag
+                # call it makes on the same inputs
+                fwd = device_ms(lambda: dlrm_forward(params, inputs, cfg), samples=3, reps=3)
+                idx = inputs["sparse_idx"].to(torch.int32).contiguous()
+                mask = inputs["sparse_mask"].to(torch.float32).contiguous()
+                bag = device_ms(lambda: eb.embedding_bag(params["tables"], idx, mask),
+                                samples=3, reps=3)
                 by_name = device_rows(lambda: dlrm_forward(params, inputs, cfg), 3,
                                       want="embedding_bag_kernel", expect=3)
-            busy = sum(by_name.values())
-            bag = sum(ms for key, ms in by_name.items() if "embedding_bag_kernel" in key)
-            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-            log(f"[dlrm] one serve_bulk forward: wall {wall:.3f} ms, device busy {busy:.3f} ms "
-                f"(idle share {1 - busy / wall:.3f}), embedding_bag {bag:.3f} ms = "
-                f"{bag / busy:.3f} of device time; top device rows: "
-                + "; ".join(f"{key[:60]} {ms:.3f} ms" for key, ms in top))
-            del inputs
+            log(f"[dlrm] one serve_bulk forward: wall {wall:.3f} ms, device time {fwd:.3f} ms "
+                f"(events; idle share {1 - fwd / wall:.3f}), its embedding_bag call "
+                f"{bag:.3f} ms = {bag / fwd:.3f} of device time")
+            if by_name is not None:
+                busy = sum(by_name.values())
+                top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+                log(f"[dlrm] the same forward's device rows (profiler): busy {busy:.3f} ms; top "
+                    f"device rows: " + "; ".join(f"{key[:60]} {ms:.3f} ms" for key, ms in top))
+            del inputs, idx, mask
         del res, batch
 
     query = draw_batch(cfg, 1, seed=7)
@@ -1231,9 +1443,8 @@ def main(argv: list[str] | None = None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="build, then time ell_histogram and swa_attention alone at the main "
-                         "path's shapes and on their paths (phases 4 and 7); prints no result "
-                         "line")
+                    help="build, then time fennel_gain alone and the initial sweep on its path "
+                         "(phase 6's stage split, phase 13's times); prints no result line")
     ap.add_argument("--src", type=Path, default=None,
                     help="import repro_torch from this directory instead of ./src (another "
                          "tree's kernels under the same measurements)")
@@ -1261,19 +1472,16 @@ def main(argv: list[str] | None = None) -> int:
     log(f"[env] repro_torch from {Path(repro_torch.__file__).parent}")
     timed("build", phase_build)
     if args.kernels_only:
-        import repro_torch.kernels.ell_histogram as eh
+        import repro_torch.core.multilevel_torch as mlt
 
-        for b, w, k in HIST_SHAPES[:2]:
-            blk, wts = hist_inputs(b, w, k, seed=0, integer=False)
-            hist_time(blk, wts, k, "random float weights")
-        serve_s = SWA_SHAPES[0][1]
-        swa_time(SERVE_BATCH, serve_s, (serve_s - 1 - SERVE_TOKENS,) * SERVE_BATCH, True)
-        b32, s32 = SWA_DECODE_32K
-        swa_time(b32, s32, (s32,) * b32, False)
-        timed("auto", phase_auto, AUTO_SIDE)
-        timed("serve", phase_serve)
-        log(f"[env] kernels only: ell_histogram launches {eh.launches}; total "
-            f"{time.perf_counter() - t_start:.1f} s")
+        fennel_time(*FENNEL_SHAPES[0], FENNEL_GAMMAS[1], profile=True)
+        coarsest = timed("profile", phase_profile, 1024)
+        if hasattr(mlt, "fennel_sweep"):
+            sweep_time(coarsest, plain=False, profile=True)
+        else:  # an earlier tree: the eager step loop is the stage
+            log(f"[sweep] no sweep kernel in this tree: the _initial_fennel stage "
+                f"{sweep_stage_ms(coarsest, reps=1):.4f} ms")
+        log(f"[env] kernels only: total {time.perf_counter() - t_start:.1f} s")
         print(gpu_name_and_limit())
         return 0
     hist = timed("kernels/ell_histogram", phase_kernels)
@@ -1281,8 +1489,8 @@ def main(argv: list[str] | None = None) -> int:
     timed("parity", phase_parity)
     hist["max_abs_err"] = max(hist["max_abs_err"], timed("auto", phase_auto, AUTO_SIDE))
     side = 1024
-    hist["launches"] = timed("full", phase_full, side)
-    timed("profile", phase_profile, side)
+    hist["launches"], sweeps = timed("full", phase_full, side)
+    coarsest = timed("profile", phase_profile, side)
     swa["launches"] = timed("serve", phase_serve)
     timed("decode", phase_decode_vs_train)
     cfg, params = timed("dlrm init", phase_dlrm_init)
@@ -1291,8 +1499,9 @@ def main(argv: list[str] | None = None) -> int:
     fennel["launches"] = timed("ops", phase_ops, cfg, params)["fennel_gain"]
     bag["launches"] = timed("dlrm", phase_dlrm, cfg, params)
     del params
+    sweep = timed("sweep", phase_sweep, coarsest, sweeps)
     log(f"[env] total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [hist, swa, bag, fennel]}))
+    print(json.dumps({"kernels": [hist, swa, bag, fennel, sweep]}))
     print(gpu_name_and_limit())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,9 @@ The port of `repro/core/multilevel_jax.py`.  The whole per-batch V-cycle
             buffers (`CSRGraph.to_coo_padded` / `to_ell_padded`),
   coarsen   LP clustering rounds; contraction is a segmented sum over
             composite (coarse-src, coarse-dst) keys into the same buffers,
-  initial   weighted Fennel on the coarsest level, a sequential loop of
-            eager tensor steps over the (≤ coarsen_target) free nodes,
+  initial   weighted Fennel on the coarsest level, sequential over the
+            (≤ coarsen_target) free nodes: one launch of the CUDA sweep
+            kernel on a card (`kernels/fennel_gain.py::fennel_sweep`),
   refine    capacity-constrained LP refinement rounds per level.
 
 Neighbor-label aggregation has three modes, picked per level by padded
@@ -43,6 +44,7 @@ from repro_torch.core.multilevel import _ELL_WIDTH_CAP as ELL_WIDTH_CAP
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import CSRGraph, bucket_size
 from repro_torch.kernels.ell_histogram import block_histogram
+from repro_torch.kernels.fennel_gain import fennel_sweep
 
 # dense (n_pad · L_pad) count-matrix entry ceiling; above it the sort mode
 # takes over (the TPU value of the reference; not yet tuned on the H100)
@@ -380,64 +382,27 @@ def _contract(esrc, edst, ew, cluster, node_w, pinned, n: int):
     return esrc2, edst2, ew2, cw, cpin, node_map, nc, valid_g.sum()
 
 
-def _pow_tensor(g1: float):
-    """Tensor twin of `np.power(m, g1)` with numpy's fast paths (x*x, sqrt,
-    1/x), so the penalty matches the host engines bit for bit at those
-    exponents; other exponents use the device's pow."""
-    if g1 == 2.0:
-        return lambda m: m * m
-    if g1 == 0.5:
-        return torch.sqrt
-    if g1 == -1.0:
-        return lambda m: 1.0 / m
-    return lambda m: torch.pow(m, g1)
-
-
 def _initial_fennel(esrc, edst, ew, node_w, pinned, n: int, n_free: int,
                     loads0, alpha: float, gamma: float, cap: float, *, w_c: int):
     """Weighted Fennel on the coarsest level, heaviest free nodes first.
 
     Sequential by construction (each step sees the earlier placements).
-    The edge arrays are src-sorted, so each step gathers the node's own
-    edge segment at a fixed width `w_c` (host-bucketed max free degree) and
-    reduces it with a (w_c, k) one-hot product.  Every step is a handful of
-    eager tensor ops with no host synchronisation.
+    The edge arrays are src-sorted, so `indptr` gives each node's own edge
+    segment; `fennel_sweep` walks the free nodes in `order`, on a card in
+    one launch of the sweep kernel, on the CPU as eager steps that gather
+    each segment at the fixed width `w_c` (host-bucketed max free degree).
     """
     n_pad = node_w.shape[0]
-    e_pad = esrc.shape[0]
-    k = loads0.shape[0]
     dev = node_w.device
-    ids = torch.arange(n_pad, device=dev)
-    valid = ids < n
+    ids = torch.arange(n_pad + 1, device=dev)
+    valid = ids[:n_pad] < n
     free = (pinned == -1) & valid
     wkey = torch.where(free, node_w, _NEG_INF)
     order = torch.sort(_sort_key_f64(-wkey), stable=True).indices  # weight desc, id asc
     labels = torch.where(valid & (pinned >= 0), pinned, -1)
     indptr = torch.searchsorted(esrc, ids)
-    blk_ids = torch.arange(k, device=dev)
-    cols = torch.arange(w_c, device=dev)
-    ag = float(alpha) * float(gamma)
-    powf = _pow_tensor(float(gamma) - 1.0)
-    loads = loads0.clone()
-    for i in range(n_free):
-        v = order[i : i + 1]
-        # clamp the segment window into the array, as a fixed-width slice
-        # would; `own` masks the entries that are not v's
-        idx = indptr[v].clamp(max=e_pad - w_c) + cols
-        seg_dst = edst[idx]
-        own = esrc[idx] == v
-        lab = torch.where(own & (seg_dst < n_pad), labels[seg_dst.clamp(max=n_pad - 1)], -1)
-        contrib = torch.where(lab >= 0, ew[idx], 0.0)
-        conn = (contrib[:, None] * (lab[:, None] == blk_ids)).sum(0)
-        score = conn - ag * powf(loads.clamp(min=0.0))
-        nw = node_w[v]
-        feasible = loads + nw <= cap
-        blk = torch.where(feasible.any(),
-                          torch.where(feasible, score, _NEG_INF).argmax(),
-                          loads.argmin()).view(1)
-        labels[v] = blk
-        loads = loads + nw * (blk_ids == blk)
-    return labels, loads
+    return fennel_sweep(esrc, edst, ew, node_w, order, indptr, labels, loads0, n_free,
+                        alpha=alpha, gamma=gamma, cap=cap, w_c=w_c)
 
 
 def _lp_refine(esrc, edst, ew, nbr, wts, node_w, pinned, n: int, labels, loads,

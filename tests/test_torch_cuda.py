@@ -1,7 +1,7 @@
 """repro_torch on a CUDA card: the ell_histogram, swa_attention,
-embedding_bag and fennel_gain kernels against their plain versions, DLRM
-forwards through the bag kernel, and the device engines against the port's
-host `sparse` engine.
+embedding_bag and fennel_gain kernels (the public op's and the V-cycle's
+initial sweep) against their plain versions, DLRM forwards through the bag
+kernel, and the device engines against the port's host `sparse` engine.
 
 Every test is marked `cuda` and skips without a card.  The file imports
 neither jax nor the JAX package, so it runs on a machine that has only
@@ -19,6 +19,7 @@ from repro_torch.core.batch_model import build_batch_model
 from repro_torch.core.fennel import FennelParams
 from repro_torch.core.multilevel import MultilevelConfig, multilevel_partition
 from repro_torch.graphs import grid_mesh_graph, rmat_graph
+from repro_torch.graphs.csr import bucket_size
 from repro_torch.kernels import ell_histogram as eh
 from repro_torch.kernels import fennel_gain as fg
 from repro_torch.kernels import swa_attention as sw
@@ -147,9 +148,12 @@ def test_engines_on_card_match_host_sparse(graph, engine, mode, card, monkeypatc
     want = multilevel_partition(model.graph, model.pinned_block, p, loads,
                                 MultilevelConfig(engine="sparse", device="cpu"))
     monkeypatch.setattr(mlt, "MODE_OVERRIDE", mode)
+    before = fg.sweep_launches
     got = multilevel_partition(model.graph, model.pinned_block, p, loads,
                                MultilevelConfig(engine=engine, device=str(card)))
     np.testing.assert_array_equal(got, want)
+    # the device V-cycle runs its initial sweep in one kernel launch
+    assert fg.sweep_launches == before + (engine == "torch")
 
 
 @pytest.mark.parametrize("gamma", [1.25, 2.5])
@@ -162,9 +166,11 @@ def test_device_engine_matches_host_at_other_gammas(gamma, card):
     p = dataclasses.replace(p, gamma=gamma)
     want = multilevel_partition(model.graph, model.pinned_block, p, loads,
                                 MultilevelConfig(engine="sparse", device="cpu"))
+    before = fg.sweep_launches
     got = multilevel_partition(model.graph, model.pinned_block, p, loads,
                                MultilevelConfig(engine="torch", device=str(card)))
     np.testing.assert_array_equal(got, want)
+    assert fg.sweep_launches == before + 1
 
 
 # (T or None for the 2-D form, V, D, B, L): the reference's test shapes, a D
@@ -250,6 +256,27 @@ def test_fennel_kernel_matches_plain_on_card(b, w, k, weights, gamma, card):
     assert torch.equal(again[0], best) and torch.equal(again[1], score)
 
 
+FENNEL_GAMMAS = (1.25, 1.5, 2.0, 2.5, 3.0, 4.0)
+
+
+@pytest.mark.parametrize("b", [1, 7, 32768])
+@pytest.mark.parametrize("w", [1, 6, 63, 64, 256])
+@pytest.mark.parametrize("k", [1, 31, 32, 33, 1000])
+def test_fennel_kernel_grid_matches_plain_on_card(k, w, b, card):
+    """Both kernels (k <= 32 with W a multiple of 4 takes the staged one)
+    against the plain version, bit for bit, at every gamma: fractional
+    weights, and every third row only -1 entries."""
+    blk, wts, loads, node_w = _fennel_inputs(b, w, k, "float", card, seed=k * w + b)
+    blk[::3] = -1
+    wts[::3] = 0.0
+    for gamma in FENNEL_GAMMAS:
+        kw = dict(alpha=0.05, gamma=gamma, cap=90.0)
+        best, score = fg.fennel_choose_batch(blk, wts, loads, node_w, **kw)
+        want_best, want_score = fg.fennel_gain_plain(blk, wts, loads, node_w, **kw)
+        assert torch.equal(best, want_best), gamma
+        assert torch.equal(score, want_score), gamma
+
+
 def test_fennel_kernel_all_infeasible_falls_back_to_least_loaded(card):
     blk, wts, _, node_w = _fennel_inputs(500, 8, 40, "int", card)
     loads = torch.full((40,), 80.0, device=card)
@@ -262,6 +289,77 @@ def test_fennel_kernel_refuses_a_row_past_shared_memory(card):
     blk, wts, loads, node_w = _fennel_inputs(8, 4, 40000, "int", card)  # 320 KB of row
     with pytest.raises(ValueError, match="shared memory"):
         fg.fennel_choose_batch(blk, wts, loads, node_w, alpha=0.1, gamma=1.5, cap=50.0)
+
+
+def _sweep_level(n, n_pad, k, n_free, hub, cap_share, seed):
+    """A src-sorted level for `_initial_fennel` as numpy arrays: ~4 edges a
+    node with integer weights 0-3, node 5 a free hub of `hub` more edges,
+    `n_free` free nodes and the rest pinned, pads past n, and the cap at
+    `cap_share` of the average load plus the heaviest node (where that
+    holds less than every node, the last steps fall back)."""
+    rng = np.random.default_rng(seed)
+    src = np.concatenate([np.repeat(np.arange(n), 4), np.full(hub, 5)])
+    dst = rng.integers(0, n, src.size)
+    keep = src != dst
+    src, dst = src[keep], dst[keep]
+    by_src = np.argsort(src, kind="stable")
+    e = src.size
+    e_pad = bucket_size(e)
+    esrc, edst = np.full(e_pad, n_pad), np.full(e_pad, n_pad)
+    esrc[:e], edst[:e] = src[by_src], dst[by_src]
+    ew = np.zeros(e_pad)
+    ew[:e] = rng.integers(0, 4, e)
+    node_w = np.zeros(n_pad)
+    node_w[:n] = rng.integers(1, 4, n)
+    pinned = np.full(n_pad, -2)
+    pinned[:n] = rng.integers(0, k, n)
+    free = np.concatenate([[5], rng.choice(np.setdiff1d(np.arange(n), [5]), n_free - 1,
+                                           replace=False)])
+    pinned[free] = -1
+    held = pinned[:n] >= 0
+    loads0 = np.bincount(pinned[:n][held], weights=node_w[:n][held], minlength=k)
+    cap = cap_share * node_w.sum() / k + 3
+    deg = np.bincount(src, minlength=n)
+    w_c = min(bucket_size(int(deg[free].max()), minimum=64), e_pad)
+    return (esrc, edst, ew, node_w, pinned), n, n_free, loads0.astype(np.float64), cap, w_c
+
+
+# (n, n_pad, k, n_free, hub, gamma): k around a warp, past it and past
+# shared memory's 24·k bytes beside the labels; every gamma; labels past
+# shared memory (n_pad = 65536) at k within and past a warp; a hub of 1500
+# or 3000 neighbours (past a staged segment's 1024 entries) in every case
+SWEEP_CASES = ([(3000, 4096, k, 1500, 3000, 1.5) for k in (2, 31, 32, 33, 64, 257)]
+               + [(3000, 4096, 8000, 400, 1500, 1.5)]
+               + [(3000, 4096, 32, 1500, 3000, g) for g in (1.25, 2.0, 2.5, 3.0, 4.0)]
+               + [(50000, 65536, 32, 600, 3000, 1.5), (50000, 65536, 257, 600, 3000, 2.0)])
+
+
+@pytest.mark.parametrize("cap_share", [1.05, 0.97])
+@pytest.mark.parametrize("n,n_pad,k,n_free,hub,gamma", SWEEP_CASES)
+def test_sweep_kernel_matches_plain_on_card(n, n_pad, k, n_free, hub, gamma, cap_share, card,
+                                            monkeypatch):
+    """`_initial_fennel` on the card (one sweep launch) against the sweep's
+    plain version on the same prepared arguments, bit for bit."""
+    arrays, n, n_free, loads0, cap, w_c = _sweep_level(n, n_pad, k, n_free, hub, cap_share,
+                                                       seed=k + n_pad)
+    seen = {}
+
+    def record(*a, **kw):
+        seen["args"], seen["kw"] = a, kw
+        return fg.fennel_sweep(*a, **kw)
+
+    monkeypatch.setattr(mlt, "fennel_sweep", record)
+    before = fg.sweep_launches
+    labels, loads = mlt._initial_fennel(*(torch.from_numpy(a).to(card) for a in arrays), n,
+                                        n_free, torch.from_numpy(loads0).to(card), 0.3, gamma,
+                                        cap, w_c=w_c)
+    assert fg.sweep_launches == before + 1
+    want_labels, want_loads = fg.fennel_sweep_plain(*seen["args"], **seen["kw"])
+    assert torch.equal(labels, want_labels)
+    assert torch.equal(loads, want_loads)
+    assert bool((labels[:n] >= 0).all())
+    if k * cap < arrays[3].sum():
+        assert float(loads.max()) > cap  # the fallback ran
 
 
 def test_dlrm_forward_launches_one_bag_kernel_per_forward(card):

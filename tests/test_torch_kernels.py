@@ -384,3 +384,52 @@ def test_public_ops_match_the_references_public_ops():
         kernels.embedding_bag(T(table), T(idx), T(mask)).numpy(),
         np.asarray(ref_kernels.embedding_bag(J(table), J(idx), J(mask), use_kernel=False)),
         rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------- fennel sweep
+
+def _sweep_inputs(n=40, k=5, seed=0):
+    """A small src-sorted level with its sweep arguments, as
+    `multilevel_torch._initial_fennel` prepares them."""
+    rng = np.random.default_rng(seed)
+    n_pad, e = 64, 160
+    src = np.sort(rng.integers(0, n, e))
+    e_pad = 256
+    esrc, edst = np.full(e_pad, n_pad), np.full(e_pad, n_pad)
+    esrc[:e], edst[:e] = src, rng.integers(0, n, e)
+    ew = np.zeros(e_pad)
+    ew[:e] = rng.integers(0, 3, e)
+    node_w = np.zeros(n_pad)
+    node_w[:n] = rng.integers(1, 3, n)
+    labels = np.full(n_pad, -1)
+    labels[:8] = rng.integers(0, k, 8)
+    order = np.concatenate([np.arange(8, n), np.arange(8), np.arange(n, n_pad)])
+    indptr = np.searchsorted(esrc, np.arange(n_pad + 1))
+    loads = np.bincount(labels[:8], weights=node_w[:8], minlength=k).astype(np.float64)
+    return [T(a) for a in (esrc, edst, ew, node_w, order, indptr, labels, loads)], n - 8
+
+
+def test_fennel_sweep_takes_plain_version_on_cpu_without_launching():
+    args, n_free = _sweep_inputs()
+    kw = dict(alpha=0.5, gamma=1.5, cap=40.0, w_c=64)
+    kept = [a.clone() for a in args]
+    before = fg.sweep_launches
+    labels, loads = fg.fennel_sweep(*args, n_free, **kw)
+    assert fg.sweep_launches == before
+    want = fg.fennel_sweep_plain(*args, n_free, **kw)
+    assert torch.equal(labels, want[0]) and torch.equal(loads, want[1])
+    assert all(torch.equal(a, b) for a, b in zip(args, kept))  # inputs left as they were
+    assert bool((labels[:40] >= 0).all()) and float(loads.sum()) == float(args[3].sum())
+
+
+def test_fennel_sweep_rejects_what_the_kernel_does_not_take():
+    args, n_free = _sweep_inputs()
+    kw = dict(alpha=0.5, gamma=1.5, cap=40.0, w_c=64)
+    for i, bad in ((1, args[1].int()), (2, args[2].float()), (5, args[5][:-1]),
+                   (6, args[6][:-1]), (7, args[7][:0])):
+        broken = list(args)
+        broken[i] = bad
+        with pytest.raises((TypeError, ValueError)):
+            fg.fennel_sweep(*broken, n_free, **kw)
+    with pytest.raises(ValueError):
+        fg.fennel_sweep(*args, 1000, **kw)  # more steps than nodes in order

@@ -1,13 +1,15 @@
 """repro_torch's V-cycle engines against repro's: labels from the port's
 `sparse`, `ell` and `torch` (on the CPU, in every aggregation mode)
 engines equal the reference `sparse` engine's; a private copy of the
-reference JAX engine agrees too; the sequential Fennel loop is
-bit-identical."""
+reference JAX engine agrees too, and so does the initial Fennel sweep on
+the CPU against the reference's `_initial_fennel`; the sequential Fennel
+loop is bit-identical."""
 import importlib.util
 from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 import repro.core
 import repro.graphs as rg
@@ -20,6 +22,9 @@ import repro_torch.core.multilevel_torch as mlt
 from repro_torch.convert import graph_from_numpy
 from repro_torch.core import multilevel as tml
 from repro_torch.core.fennel import FennelParams
+from repro_torch.graphs.csr import bucket_size
+from repro_torch.kernels import _build
+from repro_torch.kernels import fennel_gain as fg
 from repro_torch.kernels.fennel_gain import fennel_gain_sequential
 
 
@@ -126,6 +131,69 @@ def test_torch_engine_matches_reference_jax_engine(mode, jax_engine, monkeypatch
                                    tml.MultilevelConfig(engine="torch", device="cpu"))
     np.testing.assert_array_equal(got, want)
     assert "repro.core.multilevel_jax" not in sys.modules
+
+
+def _sweep_case(k, seed):
+    """A coarsest level for `_initial_fennel`: src-sorted padded edge arrays
+    with zero-weight edges and a hub of 90 neighbours, pinned nodes, a free
+    node with no neighbours, pads past n, and a cap under the average load,
+    so that the last steps find no feasible block."""
+    rng = np.random.default_rng(seed)
+    n, n_pad, hub, lone = 150, 256, 7, 11
+    src = np.concatenate([rng.integers(0, n, 600), np.full(90, hub)])
+    dst = rng.integers(0, n, src.size)
+    keep = (src != dst) & (src != lone) & (dst != lone)
+    src, dst = src[keep], dst[keep]
+    by_src = np.argsort(src, kind="stable")
+    e = src.size
+    e_pad = bucket_size(e)
+    esrc, edst = np.full(e_pad, n_pad), np.full(e_pad, n_pad)
+    esrc[:e], edst[:e] = src[by_src], dst[by_src]
+    ew = np.zeros(e_pad)
+    ew[:e] = rng.integers(0, 4, e)  # a quarter of the edges weigh 0
+    node_w = np.zeros(n_pad)
+    node_w[:n] = rng.integers(1, 4, n)
+    pinned = np.full(n_pad, -2)
+    pinned[:n] = -1
+    pin = rng.choice(np.setdiff1d(np.arange(n), [hub, lone]), 20, replace=False)
+    pinned[pin] = rng.integers(0, k, pin.size)
+    loads0 = np.bincount(pinned[pin], weights=node_w[pin], minlength=k).astype(np.float64)
+    free = pinned[:n] == -1
+    cap = 0.97 * (loads0.sum() + node_w[:n][free].sum()) / k
+    assert loads0.max() <= cap  # a load past cap at the end comes from a fallback step
+    deg = np.bincount(src, minlength=n)
+    w_c = min(bucket_size(int(deg[free].max()), minimum=64), e_pad)
+    return (esrc, edst, ew, node_w, pinned), n, int(free.sum()), loads0, cap, w_c
+
+
+@pytest.mark.parametrize("k", [2, 32, 40])
+@pytest.mark.parametrize("gamma", [1.5, 2.0, 3.0])
+def test_initial_fennel_matches_reference(gamma, k, jax_engine, monkeypatch):
+    """The port's `_initial_fennel` on CPU tensors (the sweep's plain
+    version) against the reference's jitted fori_loop: labels and loads
+    equal, bit for bit, and nothing built or launched."""
+    import jax.numpy as jnp
+
+    arrays, n, n_free, loads0, cap, w_c = _sweep_case(k, seed=k)
+    alpha = 0.4
+    with jax_engine.enable_x64():
+        want = jax_engine._initial_fennel(*map(jnp.asarray, arrays), n, jnp.asarray(loads0),
+                                          alpha, gamma, cap, w_c=w_c)
+        want_labels, want_loads = (np.asarray(a) for a in want)
+
+    def no_build(*a, **kw):
+        raise AssertionError("the CPU route built a kernel")
+
+    monkeypatch.setattr(_build, "build_all", no_build)
+    monkeypatch.setattr(_build, "load", no_build)
+    before = fg.sweep_launches
+    labels, loads = mlt._initial_fennel(*map(torch.from_numpy, arrays), n, n_free,
+                                        torch.from_numpy(loads0), alpha, gamma, cap, w_c=w_c)
+    assert fg.sweep_launches == before
+    np.testing.assert_array_equal(labels.numpy(), want_labels)
+    assert loads.numpy().tobytes() == want_loads.tobytes()  # bitwise, not approx
+    assert bool((labels[:n] >= 0).all()) and bool((labels[n:] == -1).all())
+    assert loads.max() > cap  # some step took the least-loaded fallback
 
 
 @pytest.mark.parametrize("gamma", [1.5, 2.0, 3.0])

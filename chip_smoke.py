@@ -82,7 +82,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
               full-width batch: ~12k free nodes, k = 32): the sweep kernel
               held against its plain version (the eager step loop) bit for
               bit, labels and loads, and timed: the call (two clones and the
-              launch), the `_initial_fennel` stage and the plain version once.
+              launch), the `_initial_fennel` stage and the plain version once;
+14. pipe      `buffcut_partition_pipelined` at phase 5's full width with
+              PipelineConfig() (queue 4, prefetch 2): labels bit-equal to
+              phase 5's (cut and balance too), histogram launches and one
+              sweep launch per V-cycle, every V-cycle on a worker thread;
+              prints runtime_s, ml_time_s, nodes/s and T2's time (runtime_s
+              minus its waits on T3) beside phase 5's, the same run's with
+              prefetch_batches=0, and the time of the prefetch pump's
+              per-record resume tokens over the whole stream.  Then on phase 3's
+              R-MAT inside torch.cuda.stream(s): every V-cycle on stream s
+              and off the calling thread, labels equal to the sequential
+              driver's, and buffcut_partition(prefetch_batches=2) equal to
+              prefetch_batches=0;
+15. vec       `buffcut_partition_vectorized` at the same full width with
+              wave = chunk = 32 (the incremental VectorBuffer): valid
+              labels, an exact streamed cut, the balance cap, histogram
+              launches and one sweep per V-cycle; prints runtime_s,
+              ml_time_s and the cut ratio beside phase 5's.  Then on phase
+              3's R-MAT at wave = chunk = 1: evictions and labels equal to
+              the sequential driver's on the device engine.
+
+Phase 2 also runs swa_attention's general paths (G = 32, D = 36 in bf16, a
+strided q with an int64 pos) and phase 10 fennel_gain at k = 65,536 (the
+row in device memory), each against its plain version.
 
 Kernel times are device times from CUDA events around calls enqueued
 behind a spin kernel (`device_ms`); `--kernels-only` also reads the kernel
@@ -94,8 +117,9 @@ rests on them, and the rows of such a run are logged as not measured.
 `--kernels-only` builds and runs only the timings of the fennel_gain kernel
 (phase 10's) and of the initial sweep on its path (phase 6's stage split,
 then phase 13's times where the tree has the sweep kernel; an earlier tree's
-eager sweep is timed as its `_initial_fennel` stage), and prints no result
-line; with `--src` it takes repro_torch from another tree, so that an
+eager sweep is timed as its `_initial_fennel` stage), and the swa_attention
+wrapper's host time per call at the serve shape and decode_32k, and prints
+no result line; with `--src` it takes repro_torch from another tree, so that an
 earlier commit (unpacked with `git archive` into a directory `.gitignore`
 lists) is timed by the same code on the same card.
 
@@ -150,6 +174,11 @@ SWA_SHAPES = [
     (3, 3000, 8, 4, 80, 2500, (3000, 0, 1777)),
     (1, 8192, 1, 16, 128, 8192, (8192,)),
 ]
+# (B, S, KVH, G, D, window, pos, dtype): shapes the reference's op takes
+# and the kernel alone does not, run by the wrapper's general paths: G = 32
+# (two launches of 16 heads), D = 36 in bf16 (72 bytes, padded to 80)
+SWA_GENERAL = [(4, 2048, 2, 32, 80, 1024, (2048, 1500, 700, 3), "bfloat16"),
+               (4, 2048, 8, 4, 36, 1024, (2048, 1500, 700, 3), "bfloat16")]
 # decode_32k of configs/lm_common.py: batch 128 against a 32768-token cache
 SWA_DECODE_32K = (128, 32768)
 # the swa_attention kernel's rows in a profiler trace (swa_split_kernel on
@@ -167,6 +196,8 @@ FENNEL_SHAPES = [(32768, 64, 32, "int"), (32768, 64, 32, "float"), (32768, 64, 1
                  (32768, 6, 32, "float")]
 FENNEL_GAMMAS = (1.25, 1.5, 2.0, 2.5, 3.0, 4.0)
 FENNEL_ALPHA, FENNEL_CAP = 0.05, 90.0
+# (B, W, k): the public op past shared memory (the row in device memory)
+FENNEL_LARGE_K = (4096, 16, 65536)
 # the sweep's dependent chain a step, a floor: one on-chip read of a
 # neighbour's label written a step earlier, then the five shuffle rounds of
 # the argmax over k = 32 blocks, each a dependent round trip of ~30 SM
@@ -536,6 +567,23 @@ def phase_swa_kernel() -> dict:
             log(f"[kernels] swa_attention (B={b}, S={s}, KVH={kvh}, G={g}, D={d}, "
                 f"window={window}, pos={pos}) {str(dtype)[6:]}: max_abs_err={err:g}, a second "
                 f"launch bit-identical")
+    for i, (b, s, kvh, g, d, window, pos, dtype) in enumerate(SWA_GENERAL):
+        q, k, v, p = swa_inputs(b, s, kvh, g, d, pos, getattr(torch, dtype), seed=50 + i)
+        before = sw.launches
+        got = sw.swa_attention_decode(q, k, v, p, window=window)
+        check(sw.launches - before == -(-g // 16), "swa_attention: one launch per 16 heads")
+        want = sw.swa_attention_decode_plain(q, k, v, p, window=window)
+        torch.testing.assert_close(got, want, rtol=8e-3, atol=1e-3)
+        # non-contiguous q (a transposed view) and an int64 pos
+        qt = q.transpose(1, 2).contiguous().transpose(1, 2)
+        got_t = sw.swa_attention_decode(qt, k, v, p.to(torch.int64), window=window)
+        check(not qt.is_contiguous() and torch.equal(got_t, got),
+              "swa_attention: a strided q with int64 pos differs from the contiguous call")
+        err = float((got.float() - want.float()).abs().max())
+        worst = max(worst, err)
+        log(f"[kernels] swa_attention general path (B={b}, S={s}, KVH={kvh}, G={g}, D={d}, "
+            f"window={window}) {dtype}: max_abs_err={err:g} against the plain version; a "
+            f"strided q with int64 pos gives the same bits")
     serve_s = SWA_SHAPES[0][1]
     timed = swa_time(SERVE_BATCH, serve_s, (serve_s - 1 - SERVE_TOKENS,) * SERVE_BATCH, True)
     b32, s32 = SWA_DECODE_32K
@@ -549,6 +597,29 @@ def phase_swa_kernel() -> dict:
         "max_abs_err": worst,
         **timed,
     }
+
+
+def swa_host(reps: int = 5) -> None:
+    """The swa_attention wrapper's host time per call in bf16 at the serve
+    shape and at decode_32k: the median, least and most of `reps` readings
+    of `host_us` (200 calls each), so that two trees' wrappers can be
+    compared on one card."""
+    import torch
+
+    from repro_torch.kernels import swa_attention as sw
+
+    kvh, g, d, window = 8, 4, 80, 4096
+    serve_s = SWA_SHAPES[0][1]
+    b32, s32 = SWA_DECODE_32K
+    for b, s, pos in ((SERVE_BATCH, serve_s, serve_s - 1 - SERVE_TOKENS), (b32, s32, s32)):
+        q, k, v, p = swa_inputs(b, s, kvh, g, d, (pos,) * b, torch.bfloat16, seed=b)
+        got = sorted(host_us(lambda: sw.swa_attention_decode(q, k, v, p, window=window), 200)
+                     for _ in range(reps))
+        log(f"[kernels] swa_attention B={b} S={s} pos={pos} bf16: wrapper host time per call "
+            f"{got[reps // 2]:.2f} us (median of {reps} readings; {got[0]:.2f} .. "
+            f"{got[-1]:.2f} us)")
+        del q, k, v, p
+    torch.cuda.empty_cache()
 
 
 def batch_model_case(g, batch_lo: int, batch_hi: int, k: int, seed: int):
@@ -701,8 +772,9 @@ def phase_auto(side: int) -> float:
     return worst
 
 
-def phase_full(side: int) -> tuple[int, int]:
-    """Returns the histogram and the sweep launches of the run."""
+def phase_full(side: int):
+    """Returns the histogram and the sweep launches of the run, its labels
+    and its stats."""
     import numpy as np
 
     import repro_torch.core.multilevel_torch as mlt
@@ -744,7 +816,7 @@ def phase_full(side: int) -> tuple[int, int]:
         f"nodes_per_s={g.n / stats.runtime_s:.0f} ell_histogram_launches={launches} "
         f"fennel_sweep_launches={sweeps} (device V-cycles {len(vcycles)}) "
         f"swa_attention_launches={swa_launches}")
-    return launches, sweeps
+    return launches, sweeps, block, stats
 
 
 def phase_profile(side: int):
@@ -1154,6 +1226,19 @@ def phase_fennel_kernel() -> dict:
           "fennel_gain: no feasible block must give the first least-loaded block and -inf")
     log("[fennel] no feasible block: every row takes block 7 (the first least-loaded) with "
         "score -inf, as the plain version")
+    b, w, k = FENNEL_LARGE_K
+    args = fennel_inputs(b, w, k, "float", seed=11)
+    for gamma in (1.5, 2.5):
+        kw = dict(alpha=FENNEL_ALPHA, gamma=gamma, cap=FENNEL_CAP)
+        got = fg.fennel_choose_batch(*args, **kw)
+        want = fg.fennel_gain_plain(*args, **kw)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"fennel_gain differs from its plain version at k={k}, gamma {gamma}")
+    t_large = device_ms(lambda: fg.fennel_choose_batch(*args, **kw), samples=3, reps=3)
+    log(f"[fennel] fennel_gain (B={b}, W={w}, k={k}), the row in device memory: best and "
+        f"score equal to the plain version bit for bit at gamma 1.5 and 2.5; {t_large:.4f} ms "
+        f"a call")
+    del args
 
     return {
         "name": "fennel_gain",
@@ -1436,6 +1521,185 @@ def phase_dlrm(cfg, params) -> int:
     return launches
 
 
+def counted_vcycles(record):
+    """Context manager: wraps the device V-cycle so that every call first
+    runs `record()` and appends its result to the list it yields."""
+    import contextlib
+
+    import repro_torch.core.multilevel_torch as mlt
+
+    @contextlib.contextmanager
+    def ctx():
+        seen = []
+        engine = mlt.multilevel_partition_torch
+
+        def counted(*a, **kw):
+            seen.append(record())
+            return engine(*a, **kw)
+
+        mlt.multilevel_partition_torch = counted
+        try:
+            yield seen
+        finally:
+            mlt.multilevel_partition_torch = engine
+    return ctx()
+
+
+def check_full_width(g, cfg, block, stats, launches: int, sweeps: int, vcycles: int,
+                     what: str) -> None:
+    """Valid labels, an exact streamed cut, the balance cap, histogram
+    launches and one sweep launch per device V-cycle."""
+    import numpy as np
+
+    from repro_torch.core.metrics import edge_cut
+
+    check(block.shape == (g.n,) and bool((block >= 0).all()) and bool((block < cfg.k).all()),
+          f"{what}: labels outside [0, k)")
+    cut = edge_cut(g, block)
+    check(stats.cut_weight == cut, f"{what}: streamed cut {stats.cut_weight} != edge_cut {cut}")
+    loads = np.bincount(block, minlength=cfg.k)
+    check(loads.max() <= np.ceil((1 + cfg.eps) * g.n / cfg.k), f"{what}: balance cap violated")
+    check(launches > 0, f"{what}: no ell_histogram launch")
+    check(sweeps == vcycles > 0,
+          f"{what}: {sweeps} fennel_sweep launches in {vcycles} device V-cycles, expected one each")
+
+
+def phase_pipe(side: int, full_block, full_stats) -> None:
+    """The pipelined driver at phase 5's full width (T3 runs the device
+    V-cycle on a worker thread): labels bit-equal to phase 5's; then on
+    phase 3's R-MAT inside a non-default stream, every V-cycle on that
+    stream, and the sequential driver with prefetch_batches=2."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import (
+        BuffCutConfig,
+        MultilevelConfig,
+        PipelineConfig,
+        buffcut_partition,
+        buffcut_partition_pipelined,
+    )
+    from repro_torch.core.metrics import cut_ratio
+    from repro_torch.graphs import as_node_stream, grid_mesh_graph, rmat_graph
+    from repro_torch.kernels import ell_histogram as eh
+    from repro_torch.kernels import fennel_gain as fg
+
+    g = grid_mesh_graph(side)
+    cfg = full_width_config()
+    main_thread = threading.get_ident()
+    with counted_vcycles(threading.get_ident) as threads:
+        eh.launches = fg.sweep_launches = 0
+        block, stats = buffcut_partition_pipelined(g, cfg, PipelineConfig())
+        launches, sweeps = eh.launches, fg.sweep_launches
+    check_full_width(g, cfg, block, stats, launches, sweeps, len(threads), "pipe")
+    check(np.array_equal(block, full_block), "pipelined labels differ from phase 5's")
+    check(stats.cut_weight == full_stats.cut_weight and stats.balance == full_stats.balance,
+          "pipelined cut or balance differs from phase 5's")
+    check(main_thread not in threads, "a pipelined V-cycle ran on the calling thread")
+    # the same run with T1 inline (no pump thread): what the pump costs or
+    # gives T2, and whether T3's V-cycle time moves without it
+    inline, inline_s = buffcut_partition_pipelined(g, cfg, PipelineConfig(prefetch_batches=0))
+    check(np.array_equal(inline, full_block), "pipelined labels with prefetch 0 differ")
+    # the pump's per-record resume token (inner.tell()), timed alone over
+    # the whole stream: at most what its token capture takes from T2
+    ns = as_node_stream(g)
+    t0 = time.perf_counter()
+    for _ in ns:
+        pass
+    t_iter = time.perf_counter() - t0
+    toks = []
+    t0 = time.perf_counter()
+    for _ in ns:
+        toks.append(ns.tell())
+    t_tell = time.perf_counter() - t0 - t_iter
+    del toks
+    t2 = stats.runtime_s - stats.t3_wait_s
+    t2_inline = inline_s.runtime_s - inline_s.t3_wait_s
+    seq_loop = full_stats.runtime_s - full_stats.ml_time_s
+    log(f"[pipe] grid_mesh_graph({side}), PipelineConfig() (queue 4, prefetch 2): labels == "
+        f"phase 5's, cut_ratio={cut_ratio(g, block):.6f} balance={stats.balance:.6f}; "
+        f"runtime_s={stats.runtime_s:.3f} (phase 5 {full_stats.runtime_s:.3f}) "
+        f"ml_time_s={stats.ml_time_s:.3f} (phase 5 {full_stats.ml_time_s:.3f}) "
+        f"nodes_per_s={g.n / stats.runtime_s:.0f} (phase 5 {g.n / full_stats.runtime_s:.0f}); "
+        f"T2 {t2:.3f} s (runtime_s - t3_wait_s {stats.t3_wait_s:.3f}; phase 5's loop without "
+        f"the V-cycle {seq_loop:.3f} s); ell_histogram_launches={launches} "
+        f"fennel_sweep_launches={sweeps} on {len(set(threads))} worker thread(s), "
+        f"none the caller")
+    log(f"[pipe] the same with prefetch_batches=0 (T1 inline): labels == phase 5's; "
+        f"runtime_s={inline_s.runtime_s:.3f} ml_time_s={inline_s.ml_time_s:.3f} T2 "
+        f"{t2_inline:.3f} s (t3_wait_s {inline_s.t3_wait_s:.3f}); the pump's resume tokens "
+        f"(inner.tell() per record, {g.n} records) {t_tell:.3f} s of interpreter time "
+        f"(the stream alone {t_iter:.3f} s)")
+
+    g = rmat_graph(2**16, 8, seed=0)
+    dev = BuffCutConfig(k=32, buffer_size=16384, batch_size=8192,
+                        ml=MultilevelConfig(engine="torch", device="cuda"))
+    want, want_s = buffcut_partition(g, dev)
+    s = torch.cuda.Stream()
+    with counted_vcycles(lambda: (threading.get_ident(), torch.cuda.current_stream())) as seen:
+        with torch.cuda.stream(s):
+            got, got_s = buffcut_partition_pipelined(g, dev, PipelineConfig())
+    check(len(seen) == got_s.n_batches > 0, "no V-cycle on the non-default stream run")
+    check(all(tid != main_thread and cur == s for tid, cur in seen),
+          "a V-cycle ran off the caller's stream or on the calling thread")
+    check(np.array_equal(got, want), "pipelined labels on a side stream differ from sequential")
+    pre, _ = buffcut_partition(g, dev, prefetch_batches=2)
+    check(np.array_equal(pre, want), "prefetch_batches=2 changed the sequential driver's labels")
+    log(f"[pipe] rmat_graph(2**16, 8), Q=16384, delta=8192 inside torch.cuda.stream(s): "
+        f"{len(seen)} V-cycles on worker threads with current stream s, labels == sequential; "
+        f"buffcut_partition(prefetch_batches=2) labels == prefetch_batches=0 "
+        f"(runtime_s pipelined {got_s.runtime_s:.3f}, sequential {want_s.runtime_s:.3f})")
+
+
+def phase_vec(side: int, full_block, full_stats) -> None:
+    """The vectorized driver at phase 5's full width (wave = chunk = 32, the
+    incremental VectorBuffer); then at wave = chunk = 1 on phase 3's R-MAT,
+    evictions and labels equal to the sequential driver's."""
+    import numpy as np
+
+    from repro_torch.core import (
+        BuffCutConfig,
+        MultilevelConfig,
+        VectorizedConfig,
+        buffcut_partition,
+        buffcut_partition_vectorized,
+    )
+    from repro_torch.core.metrics import cut_ratio
+    from repro_torch.graphs import grid_mesh_graph, rmat_graph
+    from repro_torch.kernels import ell_histogram as eh
+    from repro_torch.kernels import fennel_gain as fg
+
+    g = grid_mesh_graph(side)
+    cfg = full_width_config()
+    with counted_vcycles(lambda: 1) as vcycles:
+        eh.launches = fg.sweep_launches = 0
+        block, stats = buffcut_partition_vectorized(
+            g, cfg, VectorizedConfig(wave=32, chunk=32, engine="incremental"))
+        launches, sweeps = eh.launches, fg.sweep_launches
+    check_full_width(g, cfg, block, stats, launches, sweeps, len(vcycles), "vec")
+    log(f"[vec] grid_mesh_graph({side}), VectorizedConfig(wave=32, chunk=32, incremental): "
+        f"batches={stats.n_batches} cut_ratio={cut_ratio(g, block):.6f} (phase 5 "
+        f"{cut_ratio(g, full_block):.6f}) balance={stats.balance:.6f}; "
+        f"runtime_s={stats.runtime_s:.3f} (phase 5 {full_stats.runtime_s:.3f}) "
+        f"ml_time_s={stats.ml_time_s:.3f} (phase 5 {full_stats.ml_time_s:.3f}); "
+        f"ell_histogram_launches={launches} fennel_sweep_launches={sweeps} "
+        f"(device V-cycles {len(vcycles)})")
+
+    g = rmat_graph(2**16, 8, seed=0)
+    dev = BuffCutConfig(k=32, buffer_size=16384, batch_size=8192, collect_stats=True,
+                        ml=MultilevelConfig(engine="torch", device="cuda"))
+    want, want_s = buffcut_partition(g, dev)
+    got, got_s = buffcut_partition_vectorized(g, dev, VectorizedConfig(wave=1, chunk=1))
+    check(len(want_s.evictions) > 0 and [int(x) for x in got_s.evictions] == want_s.evictions,
+          "wave=1 evictions differ from the sequential driver's")
+    check(np.array_equal(got, want), "wave=1 labels differ from the sequential driver's")
+    log(f"[vec] rmat_graph(2**16, 8), wave = chunk = 1: {len(want_s.evictions)} evictions and "
+        f"labels == the sequential driver's on the device engine (runtime_s vectorized "
+        f"{got_s.runtime_s:.3f}, sequential {want_s.runtime_s:.3f})")
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -1443,8 +1707,9 @@ def main(argv: list[str] | None = None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true",
-                    help="build, then time fennel_gain alone and the initial sweep on its path "
-                         "(phase 6's stage split, phase 13's times); prints no result line")
+                    help="build, then time fennel_gain alone, the initial sweep on its path "
+                         "(phase 6's stage split, phase 13's times) and the swa_attention "
+                         "wrapper's host time; prints no result line")
     ap.add_argument("--src", type=Path, default=None,
                     help="import repro_torch from this directory instead of ./src (another "
                          "tree's kernels under the same measurements)")
@@ -1481,6 +1746,7 @@ def main(argv: list[str] | None = None) -> int:
         else:  # an earlier tree: the eager step loop is the stage
             log(f"[sweep] no sweep kernel in this tree: the _initial_fennel stage "
                 f"{sweep_stage_ms(coarsest, reps=1):.4f} ms")
+        swa_host()
         log(f"[env] kernels only: total {time.perf_counter() - t_start:.1f} s")
         print(gpu_name_and_limit())
         return 0
@@ -1489,7 +1755,7 @@ def main(argv: list[str] | None = None) -> int:
     timed("parity", phase_parity)
     hist["max_abs_err"] = max(hist["max_abs_err"], timed("auto", phase_auto, AUTO_SIDE))
     side = 1024
-    hist["launches"], sweeps = timed("full", phase_full, side)
+    hist["launches"], sweeps, full_block, full_stats = timed("full", phase_full, side)
     coarsest = timed("profile", phase_profile, side)
     swa["launches"] = timed("serve", phase_serve)
     timed("decode", phase_decode_vs_train)
@@ -1500,6 +1766,8 @@ def main(argv: list[str] | None = None) -> int:
     bag["launches"] = timed("dlrm", phase_dlrm, cfg, params)
     del params
     sweep = timed("sweep", phase_sweep, coarsest, sweeps)
+    timed("pipe", phase_pipe, side, full_block, full_stats)
+    timed("vec", phase_vec, side, full_block, full_stats)
     log(f"[env] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [hist, swa, bag, fennel, sweep]}))
     print(gpu_name_and_limit())

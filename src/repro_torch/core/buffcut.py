@@ -25,6 +25,7 @@ from repro_torch.core.buffer import BucketPQ
 from repro_torch.core.fennel import FennelParams, fennel_choose
 from repro_torch.core.metrics import internal_edge_ratio_adj, streaming_cut_increment
 from repro_torch.core.multilevel import MultilevelConfig, multilevel_partition
+from repro_torch.core.prefetch import PrefetchStream, maybe_prefetch
 from repro_torch.core.rescore import RescoreState
 from repro_torch.core.scores import SCORES, ScoreSpec, get_score
 from repro_torch.device import preflight
@@ -123,7 +124,10 @@ class StreamStats:
     cut_weight: float = 0.0           # exact edge cut, accumulated at commits
     balance: float = 0.0              # max load / (c(V)/k) at stream end
     peak_resident_bytes: int = 0      # retained adjacency + read-ahead, peak
+    stream_bytes_read: int = 0        # bytes pulled from the stream backend
     block_loads: list = dataclasses.field(default_factory=list)
+    io_retries: int = 0               # transient stream-IO errors absorbed
+    t3_wait_s: float = 0.0            # pipelined driver: T2's time blocked on T3
 
 
 def _apply(pq: BucketPQ, touched: np.ndarray, scores: np.ndarray) -> None:
@@ -148,14 +152,24 @@ def buffcut_partition(
     any work.  Unlike the reference, a batch has no host fallback: any error
     of a device engine (a kernel that does not launch, a CUDA fault
     mid-batch) propagates.
+
+    `prefetch_batches > 0` reads the stream ahead on a background thread
+    (`core/prefetch.py`) in δ-batch blocks; record order, and so every
+    label, is unchanged.
     """
-    if prefetch_batches or ckpt is not None or resume is not None:
-        raise NotImplementedError(
-            "checkpoint/resume and prefetch are not ported to repro_torch yet"
-        )
+    if ckpt is not None or resume is not None:
+        raise NotImplementedError("checkpoint/resume is not ported to repro_torch yet")
     if cfg.ml.engine != "sparse":
         preflight(cfg.ml.device)
-    stream = as_node_stream(g)
+    stream = maybe_prefetch(as_node_stream(g), prefetch_batches, cfg.batch_size)
+    try:
+        return _run(stream, cfg)
+    finally:
+        if isinstance(stream, PrefetchStream):
+            stream.close()  # joins the pump on every exit path
+
+
+def _run(stream: NodeStreamBase, cfg: BuffCutConfig) -> tuple[np.ndarray, StreamStats]:
     n = stream.n
     spec = cfg.score_spec()
     p = FennelParams(
@@ -251,5 +265,7 @@ def buffcut_partition(
     commit_batch()
     stats.balance = float(loads.max() / (p.n_total / cfg.k)) if p.n_total > 0 else 1.0
     stats.block_loads = loads.tolist()
+    stats.stream_bytes_read = stream.bytes_read
+    stats.io_retries = int(getattr(stream, "io_retries", 0))
     stats.runtime_s = time.perf_counter() - t0
     return block, stats

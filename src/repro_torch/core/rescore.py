@@ -19,8 +19,14 @@ functions of (scores.py):
   buffered_w  — weight to currently-buffered neighbors (NSS),
   blk_w/cmax  — per-block weight to assigned neighbors + running max (CMS).
 
+Membership of the buffer is a dense bool mask; the vectorized driver
+shares `VectorBuffer.in_buf` with it (zero-copy), the sequential and
+pipelined drivers mirror their BucketPQ membership into it.
+
 All bumps return touched node ids in first-occurrence adjacency order with
 their fresh scores: the order the sequential driver issues IncreaseKey in.
+The scalar twins (`*_scalar`) replay the same updates on Python floats for
+the pipelined driver's per-record loop, with bit-identical results.
 """
 from __future__ import annotations
 
@@ -81,6 +87,16 @@ class AdjacencyCache:
             self._node_w.pop(v)
             self.resident_bytes -= nb.nbytes + w.nbytes + 32
 
+    def drop_one(self, v: int) -> None:
+        """Scalar `drop` for a single node (the per-record loop's hub path):
+        same bookkeeping, no ndarray round-trip."""
+        nb = self._nbr.pop(v, None)
+        if nb is None:
+            return
+        w = self._w.pop(v)
+        self._node_w.pop(v)
+        self.resident_bytes -= nb.nbytes + w.nbytes + 32
+
     def slice(self, us: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Concatenated (neighbors int64, weights float64, degs int64) of
         `us` in order — the batched equivalent of a CSR slice."""
@@ -101,10 +117,11 @@ class RescoreState:
 
     Adjacency arrives via `observe` and lives in the bounded
     AdjacencyCache (the reference's "stream mode"; its graph mode serves
-    baselines that are not ported yet).
+    baselines that are not ported yet).  Pass `member` (e.g.
+    `VectorBuffer.in_buf`) to share a membership mask zero-copy.
     """
 
-    def __init__(self, n: int, spec: ScoreSpec, k: int):
+    def __init__(self, n: int, spec: ScoreSpec, k: int, member: np.ndarray | None = None):
         self.n = n
         self.deg_w = np.zeros(n, dtype=np.float64)
         self.spec = spec
@@ -116,7 +133,7 @@ class RescoreState:
         # occupancy, not n*k) + dense running max
         self.blk_w: dict[int, np.ndarray] | None = {} if spec.needs_block_counts else None
         self.cmax = np.zeros(n, dtype=np.float64) if spec.needs_block_counts else None
-        self.member = np.zeros(n, dtype=bool)
+        self.member = np.zeros(n, dtype=bool) if member is None else member
 
     # ----------------------------------------------------------- streaming
     def observe(self, v: int, nbrs: np.ndarray, weights: np.ndarray, node_w: float) -> None:
@@ -184,6 +201,101 @@ class RescoreState:
         np.add.at(self.buffered_w, nbr_b, w_b)
         touched = _first_occurrence(nbr_b)
         return touched, self.scores_of(touched)
+
+    # ------------------------------------------------- scalar twins (fused)
+    # The pipelined driver's per-record loop replays the batched updates
+    # above in plain Python: adds in adjacency order (what np.add.at does
+    # element by element), touched nodes in first-occurrence order, scores
+    # computed only after every add landed.  numpy float64 scalars and
+    # Python floats run the same IEEE-754 operations, so the state and the
+    # IncreaseKey sequence equal the batched versions' bit for bit.
+
+    def observe_scalar(
+        self, v: int, nbrs: np.ndarray, weights: np.ndarray, node_w: float
+    ) -> None:
+        """Scalar `observe`: a left-to-right Python-float sum is the same
+        accumulation order as seq_sum64's bincount."""
+        s = 0.0
+        for x in weights.tolist():
+            s += x
+        self.deg_w[v] = s
+        self.adj.put(v, nbrs, weights, node_w)
+
+    def score_scalar(self, v: int, fscore) -> float:
+        """`score(v)` through a `ScoreSpec.scalar_fn` closure."""
+        bw, cm = self.buffered_w, self.cmax
+        return fscore(
+            float(self.assigned_w[v]),
+            float(self.deg_w[v]),
+            float(bw[v]) if bw is not None else 0.0,
+            float(cm[v]) if cm is not None else 0.0,
+        )
+
+    def _rescore(self, touched: list[int], fscore, apply) -> None:
+        aw, bw, cm, dw = self.assigned_w, self.buffered_w, self.cmax, self.deg_w
+        for x in touched:
+            apply(
+                x,
+                fscore(
+                    float(aw[x]),
+                    float(dw[x]),
+                    float(bw[x]) if bw is not None else 0.0,
+                    float(cm[x]) if cm is not None else 0.0,
+                ),
+            )
+
+    def bump_assigned_scalar(self, u: int, was_buffered: bool, fscore, apply) -> None:
+        """Scalar `bump_assigned` for one node; `apply(node, score)` is
+        called in first-occurrence adjacency order after all adds — the
+        IncreaseKey sequence the batched result gives."""
+        nbr = self.adj._nbr.get(u)
+        if nbr is None or nbr.shape[0] == 0:
+            return
+        w = self.adj._w[u]
+        member = self.member
+        aw = self.assigned_w
+        bw_dec = self.buffered_w if (was_buffered and self.buffered_w is not None) else None
+        touched: list[int] = []
+        seen: set[int] = set()
+        for x, ew in zip(nbr.tolist(), w.tolist()):
+            if not member[x]:
+                continue
+            aw[x] = aw[x] + ew
+            if bw_dec is not None:
+                # np.add.at(bw, nbr_b, -w_b) adds the negation; a - b and
+                # a + (-b) are the same IEEE operation for float64
+                bw_dec[x] = bw_dec[x] - ew
+            if x not in seen:
+                seen.add(x)
+                touched.append(x)
+        if touched:
+            self._rescore(touched, fscore, apply)
+
+    def bump_buffered_scalar(self, v: int, fscore, apply) -> None:
+        """Scalar `bump_buffered` (NSS) for one arrival.  The arrival's own
+        buffered_w and the members' credits touch disjoint entries (v is
+        not yet a member), so one pass accumulating both equals the batched
+        bincount-then-add.at order bit for bit."""
+        if self.buffered_w is None:
+            return
+        nbr = self.adj._nbr[v]
+        w = self.adj._w[v]
+        member = self.member
+        bw = self.buffered_w
+        s = 0.0
+        touched: list[int] = []
+        seen: set[int] = set()
+        for x, ew in zip(nbr.tolist(), w.tolist()):
+            if not member[x]:
+                continue
+            s += ew
+            bw[x] = bw[x] + ew
+            if x not in seen:
+                seen.add(x)
+                touched.append(x)
+        bw[v] = s
+        if touched:
+            self._rescore(touched, fscore, apply)
 
     def bump_block_counts(self, u: int, blk: int) -> tuple[np.ndarray, np.ndarray]:
         """CMS: node `u` received concrete block `blk`; update the buffered

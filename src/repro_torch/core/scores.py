@@ -15,6 +15,7 @@ CBS(theta) is Cuttana's score; D_max = 10000.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 
@@ -61,6 +62,54 @@ class ScoreSpec:
         if self.kind == "cms":
             return cmax / d_safe
         raise ValueError(self.kind)
+
+    def scalar_fn(self):
+        """A pure-Python ``f(a, d, q=0.0, cmax=0.0) -> float`` closure,
+        bit-identical to `__call__` on float64 inputs; the pipelined
+        driver's per-record loop scores with it instead of paying a numpy
+        dispatch per node.
+
+        Python float +, -, *, / are the IEEE-754 operations the float64
+        ufunc loops run, and ``maximum(d, 1)`` is ``d if d > 1.0 else 1.0``
+        for the finite non-negative degrees the drivers produce.  The one
+        treacherous op is ``dn ** beta``: numpy's broadcast power loop
+        short-circuits beta 2.0 to ``dn * dn``, 0.5 to ``sqrt`` and -1.0 to
+        ``1 / dn``, which are not always bitwise ``pow``, so the closure
+        takes the same short-circuits and the np.power ufunc otherwise.
+        """
+        d_max, beta, theta, eta = self.d_max, self.beta, self.theta, self.eta
+        if self.kind == "anr":
+            def f(a, d, q=0.0, cmax=0.0):
+                return a / (d if d > 1.0 else 1.0)
+        elif self.kind == "cbs":
+            def f(a, d, q=0.0, cmax=0.0):
+                return d / d_max + theta * (a / (d if d > 1.0 else 1.0))
+        elif self.kind == "haa" and beta == 2.0:
+            def f(a, d, q=0.0, cmax=0.0):
+                dn = d / d_max
+                return dn * dn + theta * (1.0 - dn) * (a / (d if d > 1.0 else 1.0))
+        elif self.kind == "haa":
+            if beta == 0.5:
+                _pow = math.sqrt
+            elif beta == -1.0:
+                def _pow(dn):
+                    return 1.0 / dn
+            else:
+                def _pow(dn):
+                    return float(np.power(dn, beta))
+
+            def f(a, d, q=0.0, cmax=0.0):
+                dn = d / d_max
+                return _pow(dn) + theta * (1.0 - dn) * (a / (d if d > 1.0 else 1.0))
+        elif self.kind == "nss":
+            def f(a, d, q=0.0, cmax=0.0):
+                return (a + eta * q) / (d if d > 1.0 else 1.0)
+        elif self.kind == "cms":
+            def f(a, d, q=0.0, cmax=0.0):
+                return cmax / (d if d > 1.0 else 1.0)
+        else:
+            raise ValueError(self.kind)
+        return f
 
 
 ANR = ScoreSpec("anr")

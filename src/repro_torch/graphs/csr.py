@@ -118,6 +118,13 @@ class CSRGraph:
             node_w=np.asarray(node_weights, dtype=np.float32),
         )
 
+    def to_edge_list(self) -> np.ndarray:
+        """Return the (m, 2) canonical (u < v) undirected edge list."""
+        src = np.repeat(np.arange(self.n, dtype=np.int64), np.diff(self.indptr))
+        dst = self.indices.astype(np.int64)
+        mask = src < dst
+        return np.stack([src[mask], dst[mask]], axis=1)
+
     # ---------------------------------------------------------- padded tiles
     def to_coo_padded(
         self, n_pad: int, e_pad: int

@@ -42,7 +42,8 @@ def canonical_totals(deg_w: np.ndarray, node_w: np.ndarray) -> tuple[float, floa
 
 class NodeStreamBase:
     """Protocol for node streams: subclasses set `n` and `m` and implement
-    `__iter__` and the aggregate properties."""
+    `__iter__` and the aggregate properties; seekable streams also
+    implement `tell` and `iter_from`."""
 
     n: int
     m: int
@@ -66,6 +67,22 @@ class NodeStreamBase:
     def __iter__(self) -> Iterator[tuple[int, np.ndarray, np.ndarray, float]]:
         raise NotImplementedError
 
+    # -------------------------------------------------- resumable iteration
+    def tell(self) -> dict:
+        """Resume token for the record *after* the last one yielded by the
+        active iteration: a JSON-able dict carrying at least ``index``, the
+        next record's node id."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support positioned iteration"
+        )
+
+    def iter_from(self, pos: dict) -> Iterator[tuple[int, np.ndarray, np.ndarray, float]]:
+        """Iterate records starting at a `tell()` token, bit-identical to
+        the tail of a full iteration."""
+        raise NotImplementedError(
+            f"{type(self).__name__} does not support positioned iteration"
+        )
+
 
 class NodeStream(NodeStreamBase):
     """In-memory stream over nodes 0..n-1 of `g` in id order."""
@@ -74,6 +91,7 @@ class NodeStream(NodeStreamBase):
         self._g = g
         self.n = g.n
         self.m = g.m
+        self._cursor = 0
         self._totals: tuple[float, float] | None = None
 
     def _compute_totals(self) -> tuple[float, float]:
@@ -96,8 +114,15 @@ class NodeStream(NodeStreamBase):
         return self._compute_totals()[1]
 
     def __iter__(self) -> Iterator[tuple[int, np.ndarray, np.ndarray, float]]:
+        return self.iter_from({"index": 0})
+
+    def tell(self) -> dict:
+        return {"index": self._cursor}
+
+    def iter_from(self, pos: dict) -> Iterator[tuple[int, np.ndarray, np.ndarray, float]]:
         g = self._g
-        for v in range(g.n):
+        for v in range(int(pos["index"]), g.n):
+            self._cursor = v + 1
             yield v, g.neighbors(v), g.neighbor_weights(v), float(g.node_w[v])
 
 

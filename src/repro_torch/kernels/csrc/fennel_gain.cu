@@ -41,8 +41,11 @@
 //     per warp with a redux.
 //   - Other shapes take the general kernel: a warp a row, each lane walking
 //     the row from device memory for each of its labels, with loads and
-//     penalty in shared memory (8*k bytes; a k whose row does not fit is
-//     refused with -1, never rerouted).
+//     penalty in shared memory (8*k bytes).  A k whose row does not fit
+//     (k above ~29,000) takes the same kernel with the row left in device
+//     memory: each lane reads its block's load and computes the penalty
+//     itself.  These large-k shapes are B*W*k/32 reads a warp, far from
+//     the byte bound; they are there so that the op takes every k.
 // Both compute the penalty in the kernel with the float32 operations that
 // torch.pow and torch.mul perform on the card (`torch_pow_f32`), so a call
 // is one launch.  Sums, the feasibility add and the score's subtract are
@@ -408,19 +411,26 @@ fennel_gain_fast(const int32_t* __restrict__ nbr_blk, const float* __restrict__ 
   cp_async_wait<0>();
 }
 
+// kRowShared: loads and penalty staged in shared memory (8*k bytes).
+// Otherwise (a k whose row does not fit) each lane reads its candidate
+// block's load from device memory and computes the penalty itself, with
+// the same penalty_f32, so both forms give the same bits.
+template <bool kRowShared>
 __global__ void __launch_bounds__(kGainThreads)
 fennel_gain_general(const int32_t* __restrict__ nbr_blk, const float* __restrict__ nbr_w,
                     const float* __restrict__ loads, const float* __restrict__ node_w,
                     int32_t* __restrict__ best_out, float* __restrict__ score_out,
                     long long rows, long long width, int k, float cap, float ag, double g1) {
-  extern __shared__ float row[];  // loads[0, k), penalty[k, 2k)
+  extern __shared__ float row[];  // kRowShared: loads[0, k), penalty[k, 2k)
   __shared__ int fallback_s;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  for (int i = threadIdx.x; i < k; i += kGainThreads) {
-    const float ld = loads[i];
-    row[i] = ld;
-    row[k + i] = penalty_f32(ld, ag, g1);
+  if (kRowShared) {
+    for (int i = threadIdx.x; i < k; i += kGainThreads) {
+      const float ld = loads[i];
+      row[i] = ld;
+      row[k + i] = penalty_f32(ld, ag, g1);
+    }
   }
   if (warp == 0) {  // the first least-loaded block, by one warp
     float v = 0.0f;
@@ -452,8 +462,10 @@ fennel_gain_general(const int32_t* __restrict__ nbr_blk, const float* __restrict
         if (__ldg(blk + j) == label) acc = __fadd_rn(acc, __ldg(wts + j));
       }
       if (label < k) {
-        const bool ok = __fadd_rn(row[label], nw) <= cap;
-        const float s = ok ? __fsub_rn(acc, row[k + label]) : -INFINITY;
+        const float ld = kRowShared ? row[label] : __ldg(loads + label);
+        const bool ok = __fadd_rn(ld, nw) <= cap;
+        const float pen = kRowShared ? row[k + label] : penalty_f32(ld, ag, g1);
+        const float s = ok ? __fsub_rn(acc, pen) : -INFINITY;
         feasible |= ok;
         if (before<true>(s, label, best_v, best_i)) {
           best_v = s;
@@ -842,15 +854,21 @@ extern "C" int fennel_gain_launch(const void* nbr_blk, const void* nbr_w, const 
       reinterpret_cast<uintptr_t>(nbr_w) % 16 == 0 && fast_block_bytes(width) <= limit) {
     return launch_fast(blk, wts, ld, nw, best_out, score_out, rows, width, k, cap, agf, g1, s);
   }
-  static long long granted[kMaxDevices] = {};
-  int device = 0;
-  const long long bytes = 2 * sizeof(float) * static_cast<long long>(k);
-  err = reserve_shared(fennel_gain_general, bytes, static_cast<long long>(sizeof(int)), granted,
-                       &device);
-  if (err != 0) return err;
   const long long blocks = (rows + kGainWarps - 1) / kGainWarps;
   const dim3 grid(static_cast<unsigned>(blocks < kMaxGeneralBlocks ? blocks : kMaxGeneralBlocks));
-  fennel_gain_general<<<grid, kGainThreads, static_cast<size_t>(bytes), s>>>(
+  const long long bytes = 2 * sizeof(float) * static_cast<long long>(k);
+  if (bytes + static_cast<long long>(sizeof(int)) > limit) {  // the row stays in device memory
+    fennel_gain_general<false><<<grid, kGainThreads, 0, s>>>(blk, wts, ld, nw, best_out,
+                                                             score_out, rows, width, k, cap,
+                                                             agf, g1);
+    return static_cast<int>(cudaGetLastError());
+  }
+  static long long granted[kMaxDevices] = {};
+  int device = 0;
+  err = reserve_shared(fennel_gain_general<true>, bytes, static_cast<long long>(sizeof(int)),
+                       granted, &device);
+  if (err != 0) return err;
+  fennel_gain_general<true><<<grid, kGainThreads, static_cast<size_t>(bytes), s>>>(
       blk, wts, ld, nw, best_out, score_out, rows, width, k, cap, agf, g1);
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,9 +16,11 @@ returning (best int32 (B,), best score float32 (B,)).  It replaces
 `repro/kernels/fennel_gain.py::_fennel_kernel` with the kernel behind
 `fennel_gain_launch`, which fuses the histogram, the penalty, the
 feasibility mask and the argmax so that nothing of size (B, k) reaches
-device memory, one launch a call; it is bound by the B·W·8 bytes of rows
-it reads.  It follows the oracle `repro/kernels/ref.py::fennel_gain_ref`
-where the reference's two routes differ: an infeasible score is −inf (the
+device memory, one launch a call, for any k (a k whose loads and penalty
+do not fit in shared memory reads them from device memory); it is bound by
+the B·W·8 bytes of rows it reads.  It follows the oracle
+`repro/kernels/ref.py::fennel_gain_ref` where the reference's two routes
+differ: an infeasible score is −inf (the
 Pallas kernel writes −1e30), and the fallback is the argmin over the k real
 loads (the Pallas route pads the loads with 2·cap + 1 and returns a padded
 id when every real load exceeds that).  The kernel computes the penalty
@@ -255,11 +257,6 @@ def fennel_choose_batch(nbr_blk: torch.Tensor, nbr_w: torch.Tensor, loads: torch
         err = launch(nbr_blk.data_ptr(), nbr_w.data_ptr(), loads.data_ptr(), node_w.data_ptr(),
                      best.data_ptr(), score.data_ptr(), b, w, k, float(cap),
                      float(alpha) * float(gamma), float(gamma) - 1.0, stream)
-    if err == _ERR_SHARED_MEMORY:
-        raise ValueError(
-            f"fennel_choose_batch: the shared-memory row of k={k} blocks (loads and penalty, "
-            f"{8 * k} bytes) does not fit in a block's shared memory"
-        )
     if err != 0:
         raise RuntimeError(f"fennel_gain launch failed with CUDA error {err}")
     launches += 1

@@ -12,7 +12,9 @@ Replaces `repro/kernels/swa_attention.py::_swa_kernel` and what its wrapper
 `repro/kernels/ref.py::swa_attention_decode_ref`).  The reference slices an
 aligned window of the cache and pads D to 128 lanes before the kernel; the
 kernel here, `csrc/swa_attention.cu`, reads the window's rows straight from
-the cache and pads nothing.  It is bound by the bytes of K and V it reads,
+the cache and pads nothing at the shapes the kernel takes (D·itemsize a
+multiple of 16 bytes, 16-byte aligned storage, G <= 16; the wrapper pads
+D or splits G for the others).  It is bound by the bytes of K and V it reads,
 and reaches that rate only with enough blocks and bytes in flight, so the
 window is split ("flash-decoding"): `split_plan` cuts each row's window
 into chunks so that B·KVH·splits gives every SM several blocks; each block
@@ -36,8 +38,8 @@ launches on the same inputs are bit-identical (no float atomics).
 `swa_attention_decode` has the reference wrapper's signature without its
 `use_kernel` and `interpret` switches: it takes the plain version only for
 tensors on the CPU, and for CUDA tensors it launches the kernel or raises.
-`launches` counts wrapper calls that launched the kernel on the card (one
-kernel launch per call), and nothing else.
+`launches` counts kernel launches on the card (one a call for G <= 16, one
+per group of 16 query heads above), and nothing else.
 """
 from __future__ import annotations
 
@@ -54,7 +56,8 @@ _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _ERR_SHARED_MEMORY = -1
 _ERR_SHAPE = -2
-_MAX_GROUPS = 16
+_MAX_GROUPS = 16  # query heads a KV head in one launch (csrc: kMaxGroups)
+_VEC_BYTES = 16  # the kernel's vector loads
 
 # the split plan (csrc/swa_attention.cu: kTile positions per ring stage)
 TILE = 64
@@ -132,8 +135,10 @@ def _check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
         raise ValueError(f"k and v caches differ: {tuple(k_cache.shape)} {tuple(v_cache.shape)}")
     if q.shape[0] != b or q.shape[1] != kvh or q.shape[3] != d:
         raise ValueError(f"q {tuple(q.shape)} does not match the cache {tuple(k_cache.shape)}")
-    if pos.shape != (b,) or pos.dtype != torch.int32:
-        raise ValueError(f"pos must be ({b},) int32, got {tuple(pos.shape)} {pos.dtype}")
+    if pos.shape != (b,) or pos.dtype != torch.int32 and (
+            pos.dtype.is_floating_point or pos.dtype.is_complex or pos.dtype == torch.bool):
+        raise ValueError(f"pos must be ({b},) integers (taken as int32), got "
+                         f"{tuple(pos.shape)} {pos.dtype}")
     if q.dtype not in _DTYPE_CODES or k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:
         raise TypeError(
             f"swa_attention_decode takes float32 or bfloat16 q and caches of q's dtype, got "
@@ -181,44 +186,91 @@ def _launcher():
     return _LAUNCH
 
 
+def _pos_int32(pos: torch.Tensor) -> torch.Tensor:
+    """pos as int32, refusing fill levels an int32 cannot hold."""
+    if pos.dtype == torch.int32:
+        return pos
+    if pos.numel() and int(pos.max()) >= 2**31:
+        raise ValueError(f"pos must fit in int32 (< 2**31), got {int(pos.max())}")
+    return pos.to(torch.int32)
+
+
+def _vec_padded(t: torch.Tensor, d_pad: int) -> torch.Tensor:
+    """`t` zero-padded along its last dimension to `d_pad`, in fresh
+    (allocator-aligned) storage."""
+    out = t.new_zeros((*t.shape[:-1], d_pad))
+    out[..., : t.shape[-1]] = t
+    return out
+
+
 def swa_attention_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                          pos: torch.Tensor, *, window: int) -> torch.Tensor:
     """out (B, KVH, G, D) in q's dtype: one-token decode attention over each
-    row's last `window` cache positions before `pos` (the fill level)."""
+    row's last `window` cache positions before `pos` (the fill level).
+
+    On the card it takes what the reference's op takes: non-contiguous
+    tensors are made contiguous; an integer `pos` of another type is cast
+    to int32 (values >= 2**31 are refused); where D·itemsize is no multiple
+    of the kernel's 16-byte vectors, or a tensor is not 16-byte aligned,
+    q and the caches are zero-padded along D in fresh storage (the zero
+    columns add nothing to q·k and give zero output columns, which are cut
+    off) with the scale still 1/sqrt(D); more than 16 query heads a KV head
+    run as one launch per group of at most 16.  `launches` counts every
+    kernel launch."""
     global launches
     _check(q, k_cache, v_cache, pos, window)
     device = q.device
     if device.type == "cpu":
-        return swa_attention_decode_plain(q, k_cache, v_cache, pos, window=window)
+        return swa_attention_decode_plain(q, k_cache, v_cache, _pos_int32(pos), window=window)
     if device.type != "cuda":
         raise ValueError(f"swa_attention_decode runs on cpu or cuda tensors, got {device}")
-    if not all(t.is_contiguous() for t in (q, k_cache, v_cache, pos)):
-        raise ValueError("swa_attention_decode takes contiguous tensors on the card")
+    # the serve path's calls pass every test below and take none of the
+    # general paths' copies
+    if pos.dtype != torch.int32 or not all(
+            t.is_contiguous() for t in (q, k_cache, v_cache, pos)):
+        q, k_cache, v_cache = (t.contiguous() for t in (q, k_cache, v_cache))
+        pos = _pos_int32(pos).contiguous()
+    b, s, kvh, d = k_cache.shape
+    g = q.shape[2]
+    vec = _VEC_BYTES // q.element_size()
+    padded = d % vec != 0 or any(t.data_ptr() % _VEC_BYTES for t in (q, k_cache, v_cache))
+    if padded:
+        d_pad = _ceil_div(d, vec) * vec
+        q, k_cache, v_cache = (_vec_padded(t, d_pad) for t in (q, k_cache, v_cache))
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out[..., :d]
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    scale = 1.0 / float(d) ** 0.5
+    if g <= _MAX_GROUPS:
+        _launch(q, k_cache, v_cache, pos, out, window, scale, index)
+        launches += 1
+    else:
+        for g0 in range(0, g, _MAX_GROUPS):
+            part = torch.empty_like(q[:, :, g0:g0 + _MAX_GROUPS])
+            _launch(q[:, :, g0:g0 + _MAX_GROUPS].contiguous(), k_cache, v_cache, pos, part,
+                    window, scale, index)
+            out[:, :, g0:g0 + _MAX_GROUPS] = part
+            launches += 1
+    return out[..., :d] if padded else out
+
+
+def _launch(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor, pos: torch.Tensor,
+            out: torch.Tensor, window: int, scale: float, index: int) -> None:
+    """One kernel launch on contiguous, 16-byte-vector tensors with at most
+    16 query heads a KV head."""
     b, s, kvh, d = k_cache.shape
     g = q.shape[2]
     code = _DTYPE_CODES[q.dtype]
-    vec_bytes = 16
-    if (d * q.element_size()) % vec_bytes or any(
-            t.data_ptr() % vec_bytes for t in (q, k_cache, v_cache)):
-        raise ValueError(
-            f"the kernel loads 16-byte vectors: D * itemsize must be a multiple of 16 "
-            f"and the tensors 16-byte aligned (D={d}, {q.dtype})"
-        )
-    if not 1 <= g <= _MAX_GROUPS:
-        raise ValueError(f"the kernel takes 1 to {_MAX_GROUPS} query heads per kv head, got {g}")
-    out = torch.empty_like(q)
-    if out.numel() == 0:
-        return out
-    index = device.index if device.index is not None else torch.cuda.current_device()
     splits, chunk = _plan(min(int(window), s), b * kvh, g, _sm_count(index))
     launch = _launcher()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
         # partial: (B, KVH, splits, G, D + 2)
         partial, counters = _workspace(index, stream, b * kvh * splits * g * (d + 2), b * kvh)
         err = launch(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), pos.data_ptr(),
                      out.data_ptr(), partial.data_ptr(), counters.data_ptr(), code, b, s, kvh,
-                     g, d, int(window), chunk, splits, 1.0 / float(d) ** 0.5, stream)
+                     g, d, int(window), chunk, splits, scale, stream)
     if err == _ERR_SHARED_MEMORY:
         raise ValueError(
             f"swa_attention_decode: the kernel's ring of {q.dtype} K/V tiles of D={d} does not "
@@ -231,5 +283,3 @@ def swa_attention_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.
         )
     if err != 0:
         raise RuntimeError(f"swa_attention launch failed with code {err}")
-    launches += 1
-    return out

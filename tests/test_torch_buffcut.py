@@ -2,6 +2,7 @@
 labels and StreamStats, BucketPQ extraction traces, scores, metrics and
 the config carried across."""
 import dataclasses
+import threading
 
 import numpy as np
 import pytest
@@ -14,7 +15,13 @@ from repro.core.multilevel import MultilevelConfig as RefMultilevelConfig
 from repro.core.rescore import weighted_degrees as ref_weighted_degrees
 from repro.core.scores import SCORES as REF_SCORES
 from repro_torch.convert import buffcut_config_from_dict, graph_from_numpy
-from repro_torch.core import BuffCutConfig, buffcut_partition, metrics
+from repro_torch.core import (
+    BuffCutConfig,
+    buffcut_partition,
+    buffcut_partition_pipelined,
+    buffcut_partition_vectorized,
+    metrics,
+)
 from repro_torch.core.buffer import BucketPQ
 from repro_torch.core.rescore import weighted_degrees
 from repro_torch.core.scores import SCORES
@@ -137,9 +144,28 @@ def test_weighted_degrees_match_reference(small_rmat):
 
 def test_unported_driver_options_raise(small_grid):
     cfg = _port_cfg(_ref_cfg(), "sparse")
-    for kw in ({"prefetch_batches": 2}, {"ckpt": object()}, {"resume": {}}):
-        with pytest.raises(NotImplementedError):
-            buffcut_partition(_port(small_grid), cfg, **kw)
+    for driver in (buffcut_partition, buffcut_partition_pipelined,
+                   buffcut_partition_vectorized):
+        for kw in ({"ckpt": object()}, {"resume": {}}):
+            with pytest.raises(NotImplementedError):
+                driver(_port(small_grid), cfg, **kw)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+def test_prefetch_batches_matches_reference(depth, small_rmat):
+    """The sequential driver reading ahead `depth` δ-batches on a thread:
+    labels and stats equal the reference's at the same depth, and no pump
+    thread outlives the run."""
+    ref_cfg = _ref_cfg()
+    want_block, want = ref_buffcut(small_rmat, ref_cfg, prefetch_batches=depth)
+    block, got = buffcut_partition(_port(small_rmat), _port_cfg(ref_cfg, "sparse"),
+                                   prefetch_batches=depth)
+    np.testing.assert_array_equal(block, want_block)
+    assert (got.cut_weight, got.balance, got.n_batches, got.n_hubs, got.block_loads) == (
+        want.cut_weight, want.balance, want.n_batches, want.n_hubs, want.block_loads)
+    assert got.stream_bytes_read == want.stream_bytes_read == 0
+    assert got.io_retries == want.io_retries == 0
+    assert not [t for t in threading.enumerate() if t.name == "prefetch-pump"]
 
 
 def test_driver_on_missing_card_raises_before_any_record(small_grid):

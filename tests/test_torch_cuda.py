@@ -1,7 +1,8 @@
 """repro_torch on a CUDA card: the ell_histogram, swa_attention,
 embedding_bag and fennel_gain kernels (the public op's and the V-cycle's
 initial sweep) against their plain versions, DLRM forwards through the bag
-kernel, and the device engines against the port's host `sparse` engine.
+kernel, the device engines against the port's host `sparse` engine, and the
+pipelined driver's worker thread on the caller's stream.
 
 Every test is marked `cuda` and skips without a card.  The file imports
 neither jax nor the JAX package, so it runs on a machine that has only
@@ -120,12 +121,70 @@ def test_swa_kernel_refuses_what_it_cannot_run(card):
     torch.testing.assert_close(sw.swa_attention_decode(q, k, v, p, window=8192),
                                sw.swa_attention_decode_plain(q, k, v, p, window=8192),
                                rtol=1e-5, atol=1e-5)
-    q, k, v, p = _swa_inputs(1, 16, 1, 17, 64, (8,), torch.float32, card)
-    with pytest.raises(ValueError, match="query heads"):
-        sw.swa_attention_decode(q, k, v, p, window=8)
-    q, k, v, p = _swa_inputs(1, 16, 1, 2, 60, (8,), torch.bfloat16, card)
-    with pytest.raises(ValueError, match="16-byte"):
-        sw.swa_attention_decode(q, k, v, p, window=8)
+    # G = 17 and D·itemsize = 120 bytes were refused; the wrapper now splits
+    # the query heads and pads D, and both agree with the plain version
+    for g, d, dtype, rtol, atol in ((17, 64, torch.float32, 1e-5, 1e-5),
+                                    (2, 60, torch.bfloat16, 8e-3, 1e-3)):
+        q, k, v, p = _swa_inputs(1, 16, 1, g, d, (8,), dtype, card)
+        torch.testing.assert_close(sw.swa_attention_decode(q, k, v, p, window=8),
+                                   sw.swa_attention_decode_plain(q, k, v, p, window=8),
+                                   rtol=rtol, atol=atol)
+    q, k, v, p = _swa_inputs(1, 16, 1, 2, 64, (8,), torch.float32, card)
+    with pytest.raises(ValueError, match="int32"):
+        sw.swa_attention_decode(q, k, v, torch.tensor([2**31], device=card), window=8)
+
+
+# (B, S, KVH, G, D, window, pos, dtype): what the reference's op takes and
+# the kernel alone does not: G = 32 (two launches of 16), D = 36 in bf16
+# (72 bytes, padded to 80), D = 36 in float32 (144 bytes, unpadded), and G
+# = 20 with D = 20 in bf16 (both at once)
+SWA_GENERAL = [(2, 600, 2, 32, 64, 256, (600, 300), torch.float32),
+               (2, 600, 2, 32, 80, 256, (600, 31), torch.bfloat16),
+               (3, 500, 4, 4, 36, 128, (500, 200, 5), torch.bfloat16),
+               (3, 500, 4, 4, 36, 128, (500, 200, 5), torch.float32),
+               (2, 300, 2, 20, 20, 300, (300, 100), torch.bfloat16)]
+SWA_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (8e-3, 1e-3)}
+
+
+@pytest.mark.parametrize("b,s,kvh,g,d,window,pos,dtype", SWA_GENERAL)
+def test_swa_kernel_general_shapes_match_plain(b, s, kvh, g, d, window, pos, dtype, card):
+    q, k, v, p = _swa_inputs(b, s, kvh, g, d, pos, dtype, card)
+    rtol, atol = SWA_TOL[dtype]
+    before = sw.launches
+    got = sw.swa_attention_decode(q, k, v, p, window=window)
+    assert sw.launches == before + -(-g // 16)
+    assert got.shape == q.shape and got.dtype == dtype
+    torch.testing.assert_close(got, sw.swa_attention_decode_plain(q, k, v, p, window=window),
+                               rtol=rtol, atol=atol)
+    assert torch.equal(got, sw.swa_attention_decode(q, k, v, p, window=window))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_kernel_takes_strided_tensors_and_int64_pos(dtype, card):
+    """Non-contiguous q and caches (views of wider tensors), a cache view
+    16-byte misaligned, and an int64 pos, against the plain version on
+    contiguous copies."""
+    b, s, kvh, g, d = 3, 400, 4, 4, 64
+    gen = torch.Generator(device=card).manual_seed(7)
+    q_wide = torch.randn((b, g, kvh, d), generator=gen, device=card).to(dtype)
+    q = q_wide.transpose(1, 2)  # (B, KVH, G, D), not contiguous
+    kv = torch.randn((2, b, s, kvh, d + 1), generator=gen, device=card).to(dtype)
+    k, v = kv[0, ..., 1:], kv[1, ..., :d]  # strided; k starts one element in
+    pos = torch.tensor([400, 123, 7], dtype=torch.int64, device=card)
+    assert not (q.is_contiguous() or k.is_contiguous() or v.is_contiguous())
+    rtol, atol = SWA_TOL[dtype]
+    got = sw.swa_attention_decode(q, k, v, pos, window=256)
+    want = sw.swa_attention_decode_plain(q.contiguous(), k.contiguous(), v.contiguous(),
+                                         pos.to(torch.int32), window=256)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
+    # contiguous but 16-byte misaligned: a view one element into its storage
+    flat = torch.randn(b * s * kvh * d + 1, generator=gen, device=card).to(dtype)
+    k_off = flat[1:].view(b, s, kvh, d)
+    assert k_off.is_contiguous() and k_off.data_ptr() % 16
+    got = sw.swa_attention_decode(q, k_off, v, pos, window=256)
+    want = sw.swa_attention_decode_plain(q.contiguous(), k_off.contiguous(), v.contiguous(),
+                                         pos.to(torch.int32), window=256)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol)
 
 
 def _batch_model(g, k=8):
@@ -286,9 +345,37 @@ def test_fennel_kernel_all_infeasible_falls_back_to_least_loaded(card):
 
 
 def test_fennel_kernel_refuses_a_row_past_shared_memory(card):
-    blk, wts, loads, node_w = _fennel_inputs(8, 4, 40000, "int", card)  # 320 KB of row
-    with pytest.raises(ValueError, match="shared memory"):
-        fg.fennel_choose_batch(blk, wts, loads, node_w, alpha=0.1, gamma=1.5, cap=50.0)
+    """A row of loads and penalty past shared memory (k = 40000: 320 KB) was
+    refused; it now stays in device memory and the kernel still equals its
+    plain version bit for bit."""
+    blk, wts, loads, node_w = _fennel_inputs(8, 4, 40000, "int", card)
+    kw = dict(alpha=0.1, gamma=1.5, cap=50.0)
+    best, score = fg.fennel_choose_batch(blk, wts, loads, node_w, **kw)
+    want_best, want_score = fg.fennel_gain_plain(blk, wts, loads, node_w, **kw)
+    assert torch.equal(best, want_best) and torch.equal(score, want_score)
+
+
+@pytest.mark.parametrize("gamma", [1.5, 2.5])
+@pytest.mark.parametrize("w", [16, 6])
+def test_fennel_kernel_at_k_65536_matches_plain(w, gamma, card):
+    """k = 65,536 blocks (the row in device memory): best and score bit for
+    bit, with some rows infeasible, and with no block feasible (the first
+    least-loaded block and -inf)."""
+    blk, wts, loads, node_w = _fennel_inputs(300, w, 65536, "float", card, seed=w)
+    blk[::3] = -1
+    wts[::3] = 0.0
+    kw = dict(alpha=0.05, gamma=gamma, cap=90.0)
+    before = fg.launches
+    best, score = fg.fennel_choose_batch(blk, wts, loads, node_w, **kw)
+    assert fg.launches == before + 1
+    want_best, want_score = fg.fennel_gain_plain(blk, wts, loads, node_w, **kw)
+    assert torch.equal(best, want_best) and torch.equal(score, want_score)
+    full = torch.full_like(loads, 95.0)
+    full[[40000, 60000]] = 91.0
+    best, score = fg.fennel_choose_batch(blk, wts, full, node_w, **kw)
+    want_best, want_score = fg.fennel_gain_plain(blk, wts, full, node_w, **kw)
+    assert bool((best == 40000).all()) and bool(torch.isneginf(score).all())
+    assert torch.equal(best, want_best) and torch.equal(score, want_score)
 
 
 def _sweep_level(n, n_pad, k, n_free, hub, cap_share, seed):
@@ -380,3 +467,72 @@ def test_dlrm_forward_launches_one_bag_kernel_per_forward(card):
              "candidates": torch.randn((100, cfg.embed_dim), device=card)}
     dlrm.dlrm_retrieval(params, query, cfg)
     assert eb.launches == before + 6
+
+
+# ------------------------------------------------- the pipelined driver
+
+def _pipe_cfg(engine):
+    from repro_torch.core import BuffCutConfig
+
+    return BuffCutConfig(k=8, buffer_size=2048, batch_size=512, d_max=64,
+                         ml=MultilevelConfig(engine=engine,
+                                             device="cuda" if engine == "torch" else "cpu"))
+
+
+def test_pipelined_driver_on_card_matches_sparse(card):
+    """T3 runs the device V-cycle off the calling thread: labels and cut
+    equal the host `sparse` engine's, and every batch launched the sweep."""
+    from repro_torch.core import PipelineConfig, buffcut_partition_pipelined
+
+    g = rmat_graph(2**13, 8, seed=3)
+    want, want_s = buffcut_partition_pipelined(g, _pipe_cfg("sparse"))
+    before = fg.sweep_launches
+    got, got_s = buffcut_partition_pipelined(g, _pipe_cfg("torch"),
+                                             PipelineConfig(queue_depth=2, prefetch_batches=1))
+    assert np.array_equal(got, want) and got_s.cut_weight == want_s.cut_weight
+    assert fg.sweep_launches - before == got_s.n_batches > 1
+
+
+def test_pipelined_worker_uses_the_callers_stream(card, monkeypatch):
+    """Inside torch.cuda.stream(s), every V-cycle runs on a worker thread
+    whose current stream is s; labels equal the sequential driver's."""
+    import threading
+
+    from repro_torch.core import PipelineConfig, buffcut_partition, buffcut_partition_pipelined
+
+    seen = []
+    vcycle = mlt.multilevel_partition_torch
+
+    def recording(*a, **kw):
+        seen.append((threading.get_ident(), torch.cuda.current_stream()))
+        return vcycle(*a, **kw)
+
+    monkeypatch.setattr(mlt, "multilevel_partition_torch", recording)
+    g = rmat_graph(2**12, 8, seed=4)
+    cfg = _pipe_cfg("torch")
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        got, _ = buffcut_partition_pipelined(g, cfg, PipelineConfig(prefetch_batches=2))
+    assert seen and all(tid != threading.get_ident() and cur == s for tid, cur in seen)
+    seen.clear()
+    want, _ = buffcut_partition(g, cfg)
+    assert np.array_equal(got, want)
+    assert seen and all(cur == torch.cuda.default_stream() for _, cur in seen)
+
+
+def test_pipelined_worker_error_reaches_the_caller(card, monkeypatch):
+    """A fault in T3's device V-cycle fails the run on the calling thread
+    and leaves no worker or pump thread."""
+    import threading
+
+    from repro_torch.core import PipelineConfig, buffcut_partition_pipelined
+
+    def failing(*a, **kw):
+        raise RuntimeError("device V-cycle failed")
+
+    monkeypatch.setattr(mlt, "multilevel_partition_torch", failing)
+    with pytest.raises(RuntimeError, match="device V-cycle failed"):
+        buffcut_partition_pipelined(rmat_graph(2**12, 8, seed=5), _pipe_cfg("torch"),
+                                    PipelineConfig(queue_depth=1, prefetch_batches=2))
+    assert not [t for t in threading.enumerate()
+                if t.name in ("buffcut-t3", "prefetch-pump") and t.is_alive()]

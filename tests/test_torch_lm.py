@@ -81,8 +81,16 @@ def test_swa_matches_full_decode_attention_when_window_covers():
 def test_swa_wrapper_rejects_bad_inputs():
     q = torch.zeros(2, 2, 2, 16)
     kc = torch.zeros(2, 8, 2, 16)
+    # an integer pos of another type is taken as int32, as the reference's
+    # op takes it; a fill level past int32, or a float pos, is refused
+    torch.testing.assert_close(
+        sw.swa_attention_decode(q, kc, kc, torch.tensor([3, 8]), window=4),
+        sw.swa_attention_decode(q, kc, kc, torch.tensor([3, 8], dtype=torch.int32), window=4),
+        rtol=0, atol=0)
     with pytest.raises(ValueError, match="int32"):
-        sw.swa_attention_decode(q, kc, kc, torch.zeros(2, dtype=torch.int64), window=4)
+        sw.swa_attention_decode(q, kc, kc, torch.tensor([3, 2**31]), window=4)
+    with pytest.raises(ValueError, match="int32"):
+        sw.swa_attention_decode(q, kc, kc, torch.zeros(2), window=4)
     with pytest.raises(ValueError, match="does not match"):
         sw.swa_attention_decode(torch.zeros(2, 3, 2, 16), kc, kc,
                                 torch.zeros(2, dtype=torch.int32), window=4)

@@ -101,11 +101,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
               launches and one sweep per V-cycle; prints runtime_s,
               ml_time_s and the cut ratio beside phase 5's.  Then on phase
               3's R-MAT at wave = chunk = 1: evictions and labels equal to
-              the sequential driver's on the device engine.
+              the sequential driver's on the device engine;
+16. disk      phase 5's mesh streamed to a packed file by
+              `grid_mesh_to_disk` (about 29 MB, under build/chip_smoke/),
+              then `buffcut_partition_pipelined` on `DiskNodeStream(path)`
+              with PipelineConfig() (prefetch 2) and again with
+              prefetch_batches=0: labels bit-equal to phase 5's, an exact
+              streamed cut, every byte of the file read, peak resident
+              bytes within the reference's bound (buffer + batch +
+              read-ahead) plus the pipeline's staging, histogram launches
+              and one sweep launch per V-cycle; prints runtime_s, T2,
+              ml_time_s, t3_wait_s, nodes/s and the file's write time;
+17. crash     a spawned child runs phase 16's disk run on the card with a
+              Checkpointer every 4 batches and is SIGKILLed once the
+              snapshot on disk records 16 batches or more; the parent
+              resumes from that file on the card: labels bit-equal to
+              phase 16's, the same cut, checkpoints_written > 0; prints
+              the batch it resumed at and the resume time;
+18. restream  `restream_refine` from the disk stream seeded with phase 16's
+              cut and block loads, one pass in priority order and one in
+              stream order: the incrementally kept cut equal to edge_cut
+              on the refined labels, the balance cap, one sweep launch per
+              V-cycle; prints the cut before and after, the moves, the
+              seconds and the peak resident bytes.
 
 Phase 2 also runs swa_attention's general paths (G = 32, D = 36 in bf16, a
 strided q with an int64 pos) and phase 10 fennel_gain at k = 65,536 (the
-row in device memory), each against its plain version.
+row in device memory), each against its plain version; the latter is
+timed beside its bound.
 
 Kernel times are device times from CUDA events around calls enqueued
 behind a spin kernel (`device_ms`); `--kernels-only` also reads the kernel
@@ -117,9 +140,10 @@ rests on them, and the rows of such a run are logged as not measured.
 `--kernels-only` builds and runs only the timings of the fennel_gain kernel
 (phase 10's) and of the initial sweep on its path (phase 6's stage split,
 then phase 13's times where the tree has the sweep kernel; an earlier tree's
-eager sweep is timed as its `_initial_fennel` stage), and the swa_attention
-wrapper's host time per call at the serve shape and decode_32k, and prints
-no result line; with `--src` it takes repro_torch from another tree, so that an
+eager sweep is timed as its `_initial_fennel` stage), the swa_attention
+wrapper's host time per call at the serve shape and decode_32k, and, for
+this tree, fennel_gain at k = 65,536 and swa_attention's general paths
+timed beside their bounds; it prints no result line; with `--src` it takes repro_torch from another tree, so that an
 earlier commit (unpacked with `git archive` into a directory `.gitignore`
 lists) is timed by the same code on the same card.
 
@@ -148,6 +172,7 @@ sys.path.insert(0, str(ROOT / "src"))
 # published peaks of one H100 SXM (NVIDIA data sheet), for bound_ms
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12  # dense, on the tensor cores
 
 # (B, W, k): the main path's level-0 refinement shape first, then a
 # clustering-sized label domain, widths outside the specialised ones, k not
@@ -469,14 +494,15 @@ def swa_inputs(b, s, kvh, g, d, pos, dtype, seed: int):
 
 def swa_bound_ms(kvh: int, g: int, d: int, window: int, s: int, pos, itemsize: int):
     """(bound in ms, by what): each valid K and V row read once, q read and
-    the output written once; 4·G·D float32 operations per valid position
-    (the two products), at the card's float32 rate."""
+    the output written once; 4·G·D operations per valid position (the two
+    products) at the rate of the units that run them: bf16 at the widths of
+    swa_split_mma_kernel (D = 64, 80 or 128) on the tensor cores, any other
+    shape in float32 on the CUDA cores."""
     n = sum(max(0, min(p, s) - max(p - window, 0)) for p in pos)
     b = len(pos)
     bytes_moved = 2 * n * kvh * d * itemsize + 2 * b * kvh * g * d * itemsize + 4 * b
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = 4 * n * kvh * g * d / FP32_OPS_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    rate = BF16_TENSOR_OPS_PER_S if itemsize == 2 and d in (64, 80, 128) else FP32_OPS_PER_S
+    return bound_at(bytes_moved, 4 * n * kvh * g * d, rate)
 
 
 def swa_time(b: int, s: int, pos, masked_sdpa: bool) -> dict:
@@ -597,6 +623,28 @@ def phase_swa_kernel() -> dict:
         "max_abs_err": worst,
         **timed,
     }
+
+
+def swa_general_time() -> None:
+    """The wrapper's general paths (SWA_GENERAL) timed on the card: the
+    call (every launch it makes) and its plain version, beside the bound
+    from the shape."""
+    import torch
+
+    from repro_torch.kernels import swa_attention as sw
+
+    for i, (b, s, kvh, g, d, window, pos, dtype) in enumerate(SWA_GENERAL):
+        dt = getattr(torch, dtype)
+        q, k, v, p = swa_inputs(b, s, kvh, g, d, pos, dt, seed=50 + i)
+        call = device_ms(lambda: sw.swa_attention_decode(q, k, v, p, window=window))
+        plain = device_ms(lambda: sw.swa_attention_decode_plain(q, k, v, p, window=window))
+        bnd, by = swa_bound_ms(kvh, g, d, window, s, pos, dt.itemsize)
+        log(f"[kernels] swa_attention general path (B={b}, S={s}, KVH={kvh}, G={g}, D={d}, "
+            f"window={window}, pos={pos}) {dtype}: the call {call:.5f} ms "
+            f"({-(-g // 16)} launch(es)), plain {plain:.5f} ms; bound {bnd:.5f} ms ({by}), "
+            f"the call at {bnd / call:.4f} of it")
+        del q, k, v, p
+    torch.cuda.empty_cache()
 
 
 def swa_host(reps: int = 5) -> None:
@@ -1180,11 +1228,7 @@ def fennel_time(b: int, w: int, k: int, weights: str, gamma: float, profile: boo
     plain_ms = device_ms(lambda: fg.fennel_gain_plain(*args, **kw))
     wall = time_cuda(call)
     host = host_us(call)
-    valid = int((args[0] >= 0).sum())
-    # read the rows, loads and node weights once, write best and score;
-    # one add per valid entry, then an add, a compare, a subtract and an
-    # argmax compare per (row, block)
-    bnd, by = bound(b * w * 8 + k * 4 + b * 4 + b * 8, valid + 4 * b * k)
+    bnd, by = fennel_bound(args, b, w, k)
     log(f"[fennel] fennel_gain {(b, w, k)} {weights} weights, gamma={gamma}: kernel "
         f"{kernel * 1e3:.2f} us ({'profiler rows' if rows else 'the call'}), "
         f"the call {call_ms * 1e3:.2f} us warm, {cold * 1e3:.2f} us with L2 flushed "
@@ -1226,19 +1270,7 @@ def phase_fennel_kernel() -> dict:
           "fennel_gain: no feasible block must give the first least-loaded block and -inf")
     log("[fennel] no feasible block: every row takes block 7 (the first least-loaded) with "
         "score -inf, as the plain version")
-    b, w, k = FENNEL_LARGE_K
-    args = fennel_inputs(b, w, k, "float", seed=11)
-    for gamma in (1.5, 2.5):
-        kw = dict(alpha=FENNEL_ALPHA, gamma=gamma, cap=FENNEL_CAP)
-        got = fg.fennel_choose_batch(*args, **kw)
-        want = fg.fennel_gain_plain(*args, **kw)
-        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
-              f"fennel_gain differs from its plain version at k={k}, gamma {gamma}")
-    t_large = device_ms(lambda: fg.fennel_choose_batch(*args, **kw), samples=3, reps=3)
-    log(f"[fennel] fennel_gain (B={b}, W={w}, k={k}), the row in device memory: best and "
-        f"score equal to the plain version bit for bit at gamma 1.5 and 2.5; {t_large:.4f} ms "
-        f"a call")
-    del args
+    fennel_large_k()
 
     return {
         "name": "fennel_gain",
@@ -1250,6 +1282,39 @@ def phase_fennel_kernel() -> dict:
         **fennel_time(*FENNEL_SHAPES[0], FENNEL_GAMMAS[1], profile=False),
         "library_ms": None,
     }
+
+
+def fennel_bound(args, b: int, w: int, k: int) -> tuple[float, str]:
+    """The rows, loads and node weights read once, best and score written
+    once; one add per valid entry, then an add, a compare, a subtract and
+    an argmax compare per (row, block)."""
+    valid = int((args[0] >= 0).sum())
+    return bound(b * w * 8 + k * 4 + b * 4 + b * 8, valid + 4 * b * k)
+
+
+def fennel_large_k() -> None:
+    """The public op past shared memory (the row in device memory): bit for
+    bit against its plain version at two gammas, and its call timed beside
+    its bound."""
+    import torch
+
+    from repro_torch.kernels import fennel_gain as fg
+
+    b, w, k = FENNEL_LARGE_K
+    args = fennel_inputs(b, w, k, "float", seed=11)
+    for gamma in (1.5, 2.5):
+        kw = dict(alpha=FENNEL_ALPHA, gamma=gamma, cap=FENNEL_CAP)
+        got = fg.fennel_choose_batch(*args, **kw)
+        want = fg.fennel_gain_plain(*args, **kw)
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"fennel_gain differs from its plain version at k={k}, gamma {gamma}")
+    t_large = device_ms(lambda: fg.fennel_choose_batch(*args, **kw), samples=3, reps=3)
+    bnd, by = fennel_bound(args, b, w, k)
+    log(f"[fennel] fennel_gain (B={b}, W={w}, k={k}), the row in device memory: best and "
+        f"score equal to the plain version bit for bit at gamma 1.5 and 2.5; {t_large:.4f} ms "
+        f"a call; bound {bnd * 1e3:.3f} us ({by}), the call at {bnd / t_large:.5f} of it")
+    del args
+    torch.cuda.empty_cache()
 
 
 def sm_clock_hz() -> float:
@@ -1700,6 +1765,224 @@ def phase_vec(side: int, full_block, full_stats) -> None:
         f"{got_s.runtime_s:.3f}, sequential {want_s.runtime_s:.3f})")
 
 
+# the out-of-core phases: files under a directory of the checkout that
+# .gitignore lists; phase 17's cadence and kill point, in batches
+OOC_DIR = ROOT / "build" / "chip_smoke"
+CRASH_EVERY, CRASH_AT = 4, 16
+
+
+def pipe_resident_bound(stream, cfg, pipe, max_deg: int) -> int:
+    """tests/test_stream_conformance.py::_resident_bound (buffer + batch +
+    read-ahead, every retained node at the adjacency cache's dtypes) plus
+    the pipelined driver's staging: the prefetch pump's blocks (int32 ids,
+    float32 weights, 64 bytes a record) and the batch payloads queued for
+    or held by T3."""
+    per_node = max_deg * 16 + 96
+    retained = (cfg.buffer_size + 2 * cfg.batch_size + 2) * per_node
+    read_ahead = 2 * stream.io_chunk_bytes + per_node
+    staged = ((pipe.prefetch_batches + 1) * cfg.batch_size * (max_deg * 8 + 64)
+              + (pipe.queue_depth + 1) * cfg.batch_size * per_node)
+    return retained + read_ahead + staged
+
+
+def phase_disk(side: int, full_block, full_stats):
+    """Phase 5's mesh from a packed file through the pipelined driver, at
+    prefetch 2 and 0.  Returns the file's path and, per depth, the labels,
+    the stats and the histogram and sweep launches."""
+    import os
+
+    import numpy as np
+
+    from repro_torch.core import PipelineConfig, buffcut_partition_pipelined
+    from repro_torch.graphs import DiskNodeStream, grid_mesh_graph, grid_mesh_to_disk
+    from repro_torch.kernels import ell_histogram as eh
+    from repro_torch.kernels import fennel_gain as fg
+
+    OOC_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(OOC_DIR / f"grid{side}.bcsr")
+    t0 = time.perf_counter()
+    grid_mesh_to_disk(side, path)
+    t_write = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    g = grid_mesh_graph(side)
+    cfg = full_width_config()
+    log(f"[disk] grid_mesh_to_disk({side}): n={g.n} m={g.m}, {size} bytes written in "
+        f"{t_write:.3f} s (one record at a time)")
+    runs = {}
+    for depth in (2, 0):
+        pipe = PipelineConfig(prefetch_batches=depth)
+        stream = DiskNodeStream(path)
+        with counted_vcycles(lambda: 1) as vcycles:
+            eh.launches = fg.sweep_launches = 0
+            block, stats = buffcut_partition_pipelined(stream, cfg, pipe)
+            launches, sweeps = eh.launches, fg.sweep_launches
+        what = f"disk, prefetch {depth}"
+        check_full_width(g, cfg, block, stats, launches, sweeps, len(vcycles), what)
+        check(np.array_equal(block, full_block), f"{what}: labels differ from phase 5's")
+        check(stats.cut_weight == full_stats.cut_weight and stats.balance == full_stats.balance,
+              f"{what}: cut or balance differs from phase 5's")
+        check(stats.stream_bytes_read >= size - 64,
+              f"{what}: read {stats.stream_bytes_read} of the file's {size} bytes")
+        bnd = pipe_resident_bound(stream, cfg, pipe, int(g.max_degree))
+        check(stats.peak_resident_bytes <= bnd,
+              f"{what}: peak resident {stats.peak_resident_bytes} bytes over the bound {bnd}")
+        t2 = stats.runtime_s - stats.t3_wait_s
+        log(f"[disk] DiskNodeStream, PipelineConfig(prefetch_batches={depth}): labels == "
+            f"phase 5's, cut={stats.cut_weight:.0f} balance={stats.balance:.6f}; "
+            f"runtime_s={stats.runtime_s:.3f} T2 {t2:.3f} s ml_time_s={stats.ml_time_s:.3f} "
+            f"t3_wait_s={stats.t3_wait_s:.3f} nodes_per_s={g.n / stats.runtime_s:.0f} "
+            f"(phase 5 in memory: runtime_s {full_stats.runtime_s:.3f}); "
+            f"stream_bytes_read={stats.stream_bytes_read} peak_resident_bytes="
+            f"{stats.peak_resident_bytes} (bound {bnd}); ell_histogram_launches={launches} "
+            f"fennel_sweep_launches={sweeps} (device V-cycles {len(vcycles)})")
+        runs[depth] = (block, stats, launches, sweeps)
+    return path, runs
+
+
+def crash_child(src: str, path: str, ckpt_path: str, cfg_json: str, every: int) -> None:
+    """Phase 17's child, started with the spawn method (a CUDA context does
+    not survive a fork): phase 16's disk run, snapshotting every `every`
+    batches until the parent kills it."""
+    sys.path.insert(0, src)
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.core import (
+        BuffCutConfig,
+        Checkpointer,
+        PipelineConfig,
+        buffcut_partition_pipelined,
+    )
+    from repro_torch.graphs import DiskNodeStream
+
+    buffcut_partition_pipelined(DiskNodeStream(path), BuffCutConfig.from_json(cfg_json),
+                                PipelineConfig(), ckpt=Checkpointer(ckpt_path, every=every))
+
+
+def phase_crash(path: str, want_block, want_stats) -> tuple[int, int]:
+    """SIGKILL a checkpointing child mid-run, resume from its snapshot on
+    the card; returns the resumed run's histogram and sweep launches."""
+    import multiprocessing
+    import os
+    import signal
+
+    import numpy as np
+
+    import repro_torch
+    from repro_torch.core import PipelineConfig, buffcut_partition_pipelined, load_checkpoint
+    from repro_torch.graphs import DiskNodeStream
+    from repro_torch.kernels import ell_histogram as eh
+    from repro_torch.kernels import fennel_gain as fg
+
+    ckpt_path = str(OOC_DIR / "crash.ckpt")
+    for stale in (ckpt_path, ckpt_path + ".tmp"):
+        if os.path.exists(stale):
+            os.remove(stale)
+    src = str(Path(repro_torch.__file__).resolve().parents[1])
+    cfg = full_width_config()
+    child = multiprocessing.get_context("spawn").Process(
+        target=crash_child, args=(src, path, ckpt_path, cfg.to_json(), CRASH_EVERY),
+        name="chip-smoke-crash-child")
+    t0 = time.perf_counter()
+    child.start()
+    seen = None
+    batches = 0
+    try:
+        deadline = time.monotonic() + 600
+        while batches < CRASH_AT:
+            check(time.monotonic() < deadline, "no snapshot of enough batches in 600 s")
+            if os.path.exists(ckpt_path) and os.stat(ckpt_path).st_mtime_ns != seen:
+                seen = os.stat(ckpt_path).st_mtime_ns
+                batches = int(load_checkpoint(ckpt_path)["stats"]["n_batches"])
+                continue
+            check(child.is_alive(), f"the child ended (exit code {child.exitcode}) before a "
+                                    f"snapshot of {CRASH_AT} batches")
+            time.sleep(0.2)
+        os.kill(child.pid, signal.SIGKILL)
+    finally:
+        if child.is_alive():
+            child.kill()
+        child.join(timeout=60)
+    t_kill = time.perf_counter() - t0
+    check(child.exitcode == -signal.SIGKILL, f"the child exited with {child.exitcode}, "
+                                             "not by SIGKILL")
+    t0 = time.perf_counter()
+    state = load_checkpoint(ckpt_path)
+    t_load = time.perf_counter() - t0
+    at = int(state["stats"]["n_batches"])
+    check(at >= CRASH_AT, f"the snapshot on disk records {at} batches")
+    t0 = time.perf_counter()
+    with counted_vcycles(lambda: 1) as vcycles:
+        eh.launches = fg.sweep_launches = 0
+        block, stats = buffcut_partition_pipelined(DiskNodeStream(path), cfg, PipelineConfig(),
+                                                   resume=state)
+        launches, sweeps = eh.launches, fg.sweep_launches
+    t_resume = time.perf_counter() - t0
+    check(np.array_equal(block, want_block), "resumed labels differ from phase 16's")
+    check(stats.cut_weight == want_stats.cut_weight and stats.balance == want_stats.balance,
+          "resumed cut or balance differs from phase 16's")
+    check(stats.checkpoints_written > 0, "the resumed run counts no checkpoint")
+    check(stats.n_batches == want_stats.n_batches, "the resumed run's batch count differs")
+    check(launches > 0 and sweeps == len(vcycles) == stats.n_batches - at,
+          f"resume: {sweeps} fennel_sweep launches in {len(vcycles)} V-cycles for "
+          f"{stats.n_batches - at} batches")
+    log(f"[crash] spawned child SIGKILLed {t_kill:.3f} s after its start, its snapshot on disk "
+        f"at batch {at} of {want_stats.n_batches} (record {state['pos']['index']}, byte offset "
+        f"{state['pos']['offset']}, {os.path.getsize(ckpt_path)} bytes, loaded in "
+        f"{t_load:.3f} s); resumed on the card in {t_resume:.3f} s (runtime_s "
+        f"{stats.runtime_s:.3f} with the first run's {state['stats']['runtime_s']:.3f}): labels "
+        f"== phase 16's, cut={stats.cut_weight:.0f}, checkpoints_written="
+        f"{stats.checkpoints_written}; ell_histogram_launches={launches} "
+        f"fennel_sweep_launches={sweeps}")
+    os.remove(ckpt_path)
+    return launches, sweeps
+
+
+def phase_restream(path: str, side: int, block, stats) -> tuple[int, int]:
+    """One restream pass from the disk stream in each order, seeded with
+    phase 16's cut and loads; returns the histogram and sweep launches."""
+    import numpy as np
+
+    from repro_torch.core import edge_cut, restream_refine
+    from repro_torch.graphs import DiskNodeStream, grid_mesh_graph
+    from repro_torch.kernels import ell_histogram as eh
+    from repro_torch.kernels import fennel_gain as fg
+
+    g = grid_mesh_graph(side)
+    cfg = full_width_config()
+    total = [0, 0]
+    for order in ("priority", "stream"):
+        with counted_vcycles(lambda: 1) as vcycles:
+            eh.launches = fg.sweep_launches = 0
+            t0 = time.perf_counter()
+            refined, info = restream_refine(DiskNodeStream(path), block, cfg, 1, order=order,
+                                            initial_cut=stats.cut_weight,
+                                            initial_loads=np.asarray(stats.block_loads))
+            secs = time.perf_counter() - t0
+            launches, sweeps = eh.launches, fg.sweep_launches
+        log_ = info.passes[0]
+        cut = edge_cut(g, refined)
+        check(info.cut_weight == cut,
+              f"restream {order}: kept cut {info.cut_weight} != edge_cut {cut}")
+        loads = np.bincount(refined, minlength=cfg.k)
+        check(bool((refined >= 0).all()) and loads.max() <= np.ceil((1 + cfg.eps) * g.n / cfg.k),
+              f"restream {order}: balance cap violated")
+        check(launches > 0, f"restream {order}: no ell_histogram launch")
+        check(sweeps == len(vcycles) == log_["n_batches"] > 0,
+              f"restream {order}: {sweeps} fennel_sweep launches in {len(vcycles)} V-cycles "
+              f"for {log_['n_batches']} batches")
+        log(f"[restream] restream_refine order={order}, 1 pass from DiskNodeStream: cut "
+            f"{log_['cut_before']:.0f} -> {log_['cut_after']:.0f} (== edge_cut), moved="
+            f"{log_['moved']} batches={log_['n_batches']} hubs={log_['n_hubs']}, "
+            f"{secs:.3f} s, balance={info.balance:.6f}, peak_resident_bytes="
+            f"{info.peak_resident_bytes}, stream_bytes_read={info.stream_bytes_read}; "
+            f"ell_histogram_launches={launches} fennel_sweep_launches={sweeps}")
+        total[0] += launches
+        total[1] += sweeps
+    return total[0], total[1]
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -1747,6 +2030,9 @@ def main(argv: list[str] | None = None) -> int:
             log(f"[sweep] no sweep kernel in this tree: the _initial_fennel stage "
                 f"{sweep_stage_ms(coarsest, reps=1):.4f} ms")
         swa_host()
+        if args.src is None:  # this tree's general paths (an earlier one may refuse them)
+            fennel_large_k()
+            swa_general_time()
         log(f"[env] kernels only: total {time.perf_counter() - t_start:.1f} s")
         print(gpu_name_and_limit())
         return 0
@@ -1768,6 +2054,14 @@ def main(argv: list[str] | None = None) -> int:
     sweep = timed("sweep", phase_sweep, coarsest, sweeps)
     timed("pipe", phase_pipe, side, full_block, full_stats)
     timed("vec", phase_vec, side, full_block, full_stats)
+    path, disk = timed("disk", phase_disk, side, full_block, full_stats)
+    crash = timed("crash", phase_crash, path, *disk[2][:2])
+    restream = timed("restream", phase_restream, path, side, *disk[2][:2])
+    Path(path).unlink()
+    log(f"[kernels] launches of phases 16-18 beside phase 5's (the kernels line): "
+        f"ell_histogram {hist['launches']}; disk {disk[2][2]} and {disk[0][2]}, resume "
+        f"{crash[0]}, restream {restream[0]}; fennel_sweep {sweeps}; disk {disk[2][3]} and "
+        f"{disk[0][3]}, resume {crash[1]}, restream {restream[1]}")
     log(f"[env] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [hist, swa, bag, fennel, sweep]}))
     print(gpu_name_and_limit())

@@ -1,7 +1,32 @@
 """The BuffCut algorithm library of the port."""
 from repro_torch.core.buffcut import BuffCutConfig, StreamStats, buffcut_partition
+from repro_torch.core.checkpoint import (
+    CheckpointError,
+    Checkpointer,
+    load_checkpoint,
+    save_checkpoint,
+)
+from repro_torch.core.metrics import (
+    IncrementalCut,
+    balance,
+    block_loads,
+    cut_ratio,
+    edge_cut,
+    internal_edge_ratio,
+    internal_edge_ratio_adj,
+    l_max,
+    streaming_cut_increment,
+)
 from repro_torch.core.multilevel import MultilevelConfig, multilevel_partition
 from repro_torch.core.pipeline import PipelineConfig, buffcut_partition_pipelined
+from repro_torch.core.restream import (
+    RESTREAM_ORDERS,
+    MicroRestreamer,
+    RestreamInfo,
+    restream,
+    restream_pass,
+    restream_refine,
+)
 from repro_torch.core.vector_stream import (
     VectorizedConfig,
     buffcut_partition_vectorized,
@@ -12,10 +37,29 @@ __all__ = [
     "BuffCutConfig",
     "StreamStats",
     "buffcut_partition",
+    "CheckpointError",
+    "Checkpointer",
+    "load_checkpoint",
+    "save_checkpoint",
+    "IncrementalCut",
+    "balance",
+    "block_loads",
+    "cut_ratio",
+    "edge_cut",
+    "internal_edge_ratio",
+    "internal_edge_ratio_adj",
+    "l_max",
+    "streaming_cut_increment",
     "MultilevelConfig",
     "multilevel_partition",
     "PipelineConfig",
     "buffcut_partition_pipelined",
+    "RESTREAM_ORDERS",
+    "MicroRestreamer",
+    "RestreamInfo",
+    "restream",
+    "restream_pass",
+    "restream_refine",
     "VectorizedConfig",
     "buffcut_partition_vectorized",
     "score_kernel",

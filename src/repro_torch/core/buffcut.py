@@ -8,7 +8,9 @@ from adversarial orders.  Full batches are partitioned jointly on the batch
 model graph by the multilevel scheme — on `cfg.ml.device` for the `torch`,
 `ell` and `auto` engines — and their assignments commit.
 
-The driver consumes only the node-stream protocol (graphs/stream.py).
+The driver consumes only the node-stream protocol (graphs/stream.py): a
+`CSRGraph` is wrapped in the in-memory stream, a `DiskNodeStream`
+partitions straight from its file.
 Adjacency is retained solely for nodes that are buffered, batched, or
 mid-hub-assignment and released at commit, so peak resident memory is
 buffer + batch, measured in `StreamStats.peak_resident_bytes`.
@@ -16,12 +18,21 @@ buffer + batch, measured in `StreamStats.peak_resident_bytes`.
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 
 import numpy as np
 
 from repro_torch.core.batch_model import build_batch_model_from_adj
 from repro_torch.core.buffer import BucketPQ
+from repro_torch.core.checkpoint import (
+    Checkpointer,
+    ResumeBase,
+    pack_bucket_pq,
+    pack_rescore,
+    restore_run,
+    unpack_bucket_pq,
+)
 from repro_torch.core.fennel import FennelParams, fennel_choose
 from repro_torch.core.metrics import internal_edge_ratio_adj, streaming_cut_increment
 from repro_torch.core.multilevel import MultilevelConfig, multilevel_partition
@@ -102,6 +113,13 @@ class BuffCutConfig:
             out[f.name] = v
         return out
 
+    def to_json(self) -> str:
+        return json.dumps(self.to_dict(), sort_keys=True)
+
+    @classmethod
+    def from_json(cls, s: str) -> "BuffCutConfig":
+        return cls.from_dict(json.loads(s))
+
     @classmethod
     def from_dict(cls, d: dict) -> "BuffCutConfig":
         d = dict(d)
@@ -128,6 +146,22 @@ class StreamStats:
     block_loads: list = dataclasses.field(default_factory=list)
     io_retries: int = 0               # transient stream-IO errors absorbed
     t3_wait_s: float = 0.0            # pipelined driver: T2's time blocked on T3
+    checkpoints_written: int = 0      # crash-safe snapshots persisted
+
+    @property
+    def mean_ier(self) -> float:
+        return float(np.mean(self.ier_per_batch)) if self.ier_per_batch else 0.0
+
+    def to_dict(self) -> dict:
+        out = dataclasses.asdict(self)
+        out["ier_per_batch"] = [float(x) for x in self.ier_per_batch]
+        out["evictions"] = [int(x) for x in self.evictions]
+        out["block_loads"] = [float(x) for x in self.block_loads]
+        return out
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "StreamStats":
+        return cls(**d)
 
 
 def _apply(pq: BucketPQ, touched: np.ndarray, scores: np.ndarray) -> None:
@@ -141,7 +175,7 @@ def buffcut_partition(
     cfg: BuffCutConfig,
     *,
     prefetch_batches: int = 0,
-    ckpt=None,
+    ckpt: Checkpointer | None = None,
     resume: dict | None = None,
 ) -> tuple[np.ndarray, StreamStats]:
     """Partition a node stream into `cfg.k` blocks; returns (block, stats).
@@ -156,20 +190,24 @@ def buffcut_partition(
     `prefetch_batches > 0` reads the stream ahead on a background thread
     (`core/prefetch.py`) in δ-batch blocks; record order, and so every
     label, is unchanged.
+
+    `ckpt` snapshots the whole run state at record boundaries every
+    `ckpt.every` batches (`core/checkpoint.py`); `resume`, a loaded
+    snapshot, continues the run from it with labels bit-identical to the
+    uninterrupted run's.
     """
-    if ckpt is not None or resume is not None:
-        raise NotImplementedError("checkpoint/resume is not ported to repro_torch yet")
     if cfg.ml.engine != "sparse":
         preflight(cfg.ml.device)
     stream = maybe_prefetch(as_node_stream(g), prefetch_batches, cfg.batch_size)
     try:
-        return _run(stream, cfg)
+        return _run(stream, cfg, ckpt, resume)
     finally:
         if isinstance(stream, PrefetchStream):
             stream.close()  # joins the pump on every exit path
 
 
-def _run(stream: NodeStreamBase, cfg: BuffCutConfig) -> tuple[np.ndarray, StreamStats]:
+def _run(stream: NodeStreamBase, cfg: BuffCutConfig, ckpt: Checkpointer | None,
+         resume: dict | None) -> tuple[np.ndarray, StreamStats]:
     n = stream.n
     spec = cfg.score_spec()
     p = FennelParams(
@@ -185,7 +223,27 @@ def _run(stream: NodeStreamBase, cfg: BuffCutConfig) -> tuple[np.ndarray, Stream
     loads = np.zeros(cfg.k, dtype=np.float64)
     batch: list[int] = []
     stats = StreamStats()
-    t0 = time.perf_counter()
+    if resume is not None:
+        stats = restore_run(resume, "buffcut", cfg.to_json(), n, block, loads, st, ckpt,
+                            StreamStats.from_dict)
+        batch.extend(int(x) for x in np.asarray(resume["batch"]).tolist())
+        unpack_bucket_pq(pq, resume["pq"])
+    base = ResumeBase(stats)
+
+    def make_state() -> dict:
+        sd = base.snapshot_stats(stats, stream, ckpt)
+        return {
+            "kind": "buffcut",
+            "config_json": cfg.to_json(),
+            "n": n,
+            "pos": stream.tell(),
+            "block": block,
+            "loads": loads,
+            "batch": np.asarray(batch, dtype=np.int64),
+            "stats": sd,
+            "state": pack_rescore(st),
+            "pq": pack_bucket_pq(pq),
+        }
 
     def note_peak(extra: int = 0) -> None:
         resident = st.adj.resident_bytes + stream.resident_bytes + extra
@@ -234,7 +292,8 @@ def _run(stream: NodeStreamBase, cfg: BuffCutConfig) -> tuple[np.ndarray, Stream
             commit_batch()
 
     one = np.empty(1, dtype=np.int64)
-    for v, nbrs, nbr_w, node_w in stream:
+    records = stream.iter_from(dict(resume["pos"])) if resume is not None else iter(stream)
+    for v, nbrs, nbr_w, node_w in records:
         st.observe(v, nbrs, nbr_w, node_w)
         note_peak()
         if nbrs.size > cfg.d_max:  # hub bypass: assign immediately via Fennel
@@ -258,6 +317,10 @@ def _run(stream: NodeStreamBase, cfg: BuffCutConfig) -> tuple[np.ndarray, Stream
                 stats.peak_mem_items = max(stats.peak_mem_items, len(pq) + len(batch))
         while len(pq) >= cfg.buffer_size and len(batch) < cfg.batch_size:
             evict_one()
+        if ckpt is not None:
+            # a record boundary: the hub committed or the node buffered, so
+            # the whole state is consistent
+            ckpt.maybe_save(stats.n_batches, make_state)
 
     # flush (paper Alg. 1 tail)
     while len(pq) > 0:
@@ -265,7 +328,5 @@ def _run(stream: NodeStreamBase, cfg: BuffCutConfig) -> tuple[np.ndarray, Stream
     commit_batch()
     stats.balance = float(loads.max() / (p.n_total / cfg.k)) if p.n_total > 0 else 1.0
     stats.block_loads = loads.tolist()
-    stats.stream_bytes_read = stream.bytes_read
-    stats.io_retries = int(getattr(stream, "io_retries", 0))
-    stats.runtime_s = time.perf_counter() - t0
+    base.fold(stats, stream, ckpt)
     return block, stats

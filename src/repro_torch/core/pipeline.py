@@ -34,6 +34,12 @@ Shutdown: every queue put/get is bounded and watches a shared stop event,
 T3's exception is captured and re-raised on the calling thread, and a
 ``finally`` poison-pills and joins T3 and the prefetch pump on every exit
 path.  `quiesce` waits until every enqueued task has committed.
+
+Checkpoints (`ckpt`) are taken on T2 at a record boundary once the batch
+counter crosses the cadence: T2 first waits for T3 to commit every
+enqueued task, then snapshots under the commit lock with the resume token
+of the last record T2 consumed (through the prefetch pump, the token the
+pump captured after that record, not after the last one it read).
 """
 from __future__ import annotations
 
@@ -49,6 +55,14 @@ import torch
 from repro_torch.core.batch_model import build_batch_model_from_adj
 from repro_torch.core.buffcut import BuffCutConfig, StreamStats
 from repro_torch.core.buffer import BucketPQ
+from repro_torch.core.checkpoint import (
+    Checkpointer,
+    ResumeBase,
+    pack_bucket_pq,
+    pack_rescore,
+    restore_run,
+    unpack_bucket_pq,
+)
 from repro_torch.core.fennel import FennelParams, fennel_choose
 from repro_torch.core.metrics import internal_edge_ratio_adj, streaming_cut_increment
 from repro_torch.core.multilevel import multilevel_partition
@@ -89,12 +103,20 @@ def _payload_bytes(arrays) -> int:
     return int(sum(a.nbytes for a in arrays if isinstance(a, np.ndarray)) + 64)
 
 
+def _token(stream: NodeStreamBase) -> dict | None:
+    """The stream's resume token, or None where it cannot seek."""
+    try:
+        return stream.tell()
+    except NotImplementedError:
+        return None
+
+
 def buffcut_partition_pipelined(
     g: CSRGraph | NodeStreamBase,
     cfg: BuffCutConfig,
     pipe: PipelineConfig | None = None,
     *,
-    ckpt=None,
+    ckpt: Checkpointer | None = None,
     resume: dict | None = None,
 ) -> tuple[np.ndarray, StreamStats]:
     """Partition a node stream into `cfg.k` blocks with the three-stage
@@ -102,10 +124,10 @@ def buffcut_partition_pipelined(
 
     `stats.ml_time_s` is T3's time inside the V-cycle and `stats.t3_wait_s`
     the time T2 spent blocked on T3 (a full task queue, the final drain),
-    so `runtime_s - t3_wait_s` is T2's own time.
+    so `runtime_s - t3_wait_s` is T2's own time.  `ckpt`/`resume` as in
+    `buffcut_partition`; queue and prefetch depths change no label, so a
+    snapshot resumes at any depth.
     """
-    if ckpt is not None or resume is not None:
-        raise NotImplementedError("checkpoint/resume is not ported to repro_torch yet")
     pipe = pipe if pipe is not None else PipelineConfig()
     # the caller's device and current stream, for T3: torch keeps both per
     # thread, and the kernel libraries are built here, not inside T3
@@ -129,7 +151,14 @@ def buffcut_partition_pipelined(
     task_q: queue.Queue = queue.Queue(maxsize=pipe.queue_depth)
     stats = StreamStats()
     batch: list[int] = []
-    t0 = time.perf_counter()
+    if resume is not None:
+        stats = restore_run(resume, "buffcut-pipe", cfg.to_json(), n, block, loads, st, ckpt,
+                            StreamStats.from_dict)
+        batch.extend(int(x) for x in np.asarray(resume["batch"]).tolist())
+        unpack_bucket_pq(pq, resume["pq"])
+    start = dict(resume["pos"]) if resume is not None else None
+    last_pos = [start]  # resume token after the last record T2 consumed
+    base = ResumeBase(stats)
 
     stop = threading.Event()
     worker_err: list[BaseException] = []
@@ -150,6 +179,28 @@ def buffcut_partition_pipelined(
                 done_cv.wait(timeout=_POLL_S)
         waited[0] += time.perf_counter() - t_wait
         check_worker()
+
+    def make_state() -> dict:
+        sd = base.snapshot_stats(stats, stream, ckpt, waited[0])
+        return {
+            "kind": "buffcut-pipe",
+            "config_json": cfg.to_json(),
+            "n": n,
+            "pos": dict(last_pos[0]),
+            "block": block,
+            "loads": loads,
+            "batch": np.asarray(batch, dtype=np.int64),
+            "stats": sd,
+            "state": pack_rescore(st),
+            "pq": pack_bucket_pq(pq),
+        }
+
+    def snapshot() -> None:
+        """A closed batch boundary: every enqueued task committed, then the
+        state built and written under the commit lock."""
+        quiesce()
+        with lock:
+            ckpt.maybe_save(stats.n_batches, make_state)
 
     # bytes of the batch and hub payloads queued or in T3: released cache
     # entries live on in payloads until T3 is done with them.  T1's staged
@@ -255,20 +306,24 @@ def buffcut_partition_pipelined(
             batch.clear()
 
     def blocks():
-        """Record blocks: T1's thread when configured, inline chunking
-        otherwise — the same record sequence either way."""
+        """(records, tokens) blocks: T1's thread when configured, inline
+        chunking otherwise — the same record sequence either way.  The
+        tokens (resume positions after each record) are kept only for a
+        checkpointed run; otherwise they are None."""
         if isinstance(stream, PrefetchStream):
-            for recs, _tokens in stream.blocks():
-                yield recs
+            yield from stream.blocks(start)
             return
+        records = stream.iter_from(start) if start is not None else iter(stream)
         recs: list = []
-        for rec in stream:
+        toks: list = []
+        for rec in records:
             recs.append(rec)
+            toks.append(_token(stream) if ckpt is not None else None)
             if len(recs) == blk:
-                yield recs
-                recs = []
+                yield recs, toks
+                recs, toks = [], []
         if recs:
-            yield recs
+            yield recs, toks
 
     # ---- T2: the fused scalar loop, Python-float math on the shared
     # RescoreState counters, bit-identical to the batched bumps
@@ -292,9 +347,9 @@ def buffcut_partition_pipelined(
             flush_batch()
 
     try:
-        for recs in blocks():
+        for recs, toks in blocks():
             check_worker()
-            for v, nbrs, nbr_w, node_w in recs:
+            for ri, (v, nbrs, nbr_w, node_w) in enumerate(recs):
                 st.observe_scalar(v, nbrs, nbr_w, node_w)
                 if nbrs.size > d_max:
                     payload = (v, nbrs, nbr_w, node_w)
@@ -310,6 +365,11 @@ def buffcut_partition_pipelined(
                     member[v] = True
                 while len(pq) >= buffer_size and len(batch) < batch_size:
                     evict()
+                if ckpt is not None:
+                    if toks[ri] is not None:
+                        last_pos[0] = toks[ri]
+                    if last_pos[0] is not None and ckpt.due(stats.n_batches):
+                        snapshot()
             note_peak()
         while len(pq) > 0:
             evict()
@@ -328,8 +388,5 @@ def buffcut_partition_pipelined(
     with lock:
         stats.balance = float(loads.max() / (p.n_total / cfg.k)) if p.n_total > 0 else 1.0
     stats.block_loads = loads.tolist()
-    stats.stream_bytes_read = stream.bytes_read
-    stats.io_retries = int(getattr(stream, "io_retries", 0))
-    stats.t3_wait_s = waited[0]
-    stats.runtime_s = time.perf_counter() - t0
+    base.fold(stats, stream, ckpt, waited[0])
     return block, stats

@@ -71,6 +71,8 @@ class PrefetchStream(NodeStreamBase):
         self._block = int(block)
         self.n = inner.n
         self.m = inner.m
+        self.has_edge_w = inner.has_edge_w
+        self.has_node_w = inner.has_node_w
         self._q: queue.Queue | None = None
         self._thread: threading.Thread | None = None
         self._stop = threading.Event()
@@ -97,7 +99,7 @@ class PrefetchStream(NodeStreamBase):
 
     @property
     def io_retries(self) -> int:
-        return getattr(self._inner, "io_retries", 0)
+        return self._inner.io_retries
 
     def tell(self) -> dict:
         if self._last_pos is None:

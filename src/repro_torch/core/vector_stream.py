@@ -21,6 +21,7 @@ it.
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 
 import numpy as np
@@ -29,6 +30,14 @@ import torch
 from repro_torch.core.batch_model import build_batch_model_from_adj
 from repro_torch.core.buffcut import BuffCutConfig, StreamStats
 from repro_torch.core.buffer import VectorBuffer
+from repro_torch.core.checkpoint import (
+    Checkpointer,
+    ResumeBase,
+    pack_rescore,
+    pack_vector_buffer,
+    restore_run,
+    unpack_vector_buffer,
+)
 from repro_torch.core.fennel import FennelParams, fennel_choose
 from repro_torch.core.metrics import internal_edge_ratio_adj, streaming_cut_increment
 from repro_torch.core.multilevel import multilevel_partition
@@ -86,6 +95,9 @@ class VectorizedConfig:
                 "'incremental' (O(occ) per wave) or 'scan' (the oracle)"
             )
 
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
 
 def buffcut_partition_vectorized(
     g: CSRGraph | NodeStreamBase,
@@ -93,29 +105,38 @@ def buffcut_partition_vectorized(
     vec: VectorizedConfig | None = None,
     *,
     prefetch_batches: int = 0,
-    ckpt=None,
+    ckpt: Checkpointer | None = None,
     resume: dict | None = None,
 ) -> tuple[np.ndarray, StreamStats]:
     """Partition a node stream into `cfg.k` blocks with the dense buffer;
-    returns (block, stats).  CMS is refused (it needs per-block counts)."""
-    if ckpt is not None or resume is not None:
-        raise NotImplementedError("checkpoint/resume is not ported to repro_torch yet")
+    returns (block, stats).  CMS is refused (it needs per-block counts).
+
+    `ckpt` snapshots at chunk boundaries, `resume` continues from such a
+    snapshot bit-identically (`core/checkpoint.py`); both need the
+    `incremental` VectorBuffer engine, whose compact arrays are what a
+    snapshot holds.  wave, chunk and engine change labels, so they are part
+    of the snapshot's identity beside the BuffCut config.
+    """
     vec = vec if vec is not None else VectorizedConfig()
     if cfg.score_spec().needs_block_counts:
         raise ValueError("CMS needs per-block counts; use the sequential driver")
+    if (ckpt is not None or resume is not None) and vec.engine != "incremental":
+        raise ValueError(
+            f"checkpoint/resume needs the 'incremental' VectorBuffer engine, got {vec.engine!r}"
+        )
     if cfg.ml.engine != "sparse":
         preflight(cfg.ml.device)
     # background read-ahead: record order — and so labels — unchanged
     stream = maybe_prefetch(as_node_stream(g), prefetch_batches, cfg.batch_size)
     try:
-        return _run(stream, cfg, vec)
+        return _run(stream, cfg, vec, ckpt, resume)
     finally:
         if isinstance(stream, PrefetchStream):
             stream.close()
 
 
-def _run(stream: NodeStreamBase, cfg: BuffCutConfig,
-         vec: VectorizedConfig) -> tuple[np.ndarray, StreamStats]:
+def _run(stream: NodeStreamBase, cfg: BuffCutConfig, vec: VectorizedConfig,
+         ckpt: Checkpointer | None, resume: dict | None) -> tuple[np.ndarray, StreamStats]:
     wave, chunk = vec.wave, vec.chunk
     spec = cfg.score_spec()
     n = stream.n
@@ -129,7 +150,34 @@ def _run(stream: NodeStreamBase, cfg: BuffCutConfig,
     batch: list[np.ndarray] = []
     batch_count = 0
     stats = StreamStats()
-    t0 = time.perf_counter()
+    config_json = json.dumps({"cfg": cfg.to_dict(), "vec": vec.to_dict()}, sort_keys=True)
+    if resume is not None:
+        # rescore first, buffer second: unpack_vector_buffer rewrites the
+        # in_buf mask that restore_run restored through st.member
+        stats = restore_run(resume, "buffcut-vec", config_json, n, block, loads, st, ckpt,
+                            StreamStats.from_dict)
+        unpack_vector_buffer(buf, resume["buf"])
+        pend_b = np.asarray(resume["batch"], dtype=np.int64)
+        if pend_b.size:
+            batch.append(pend_b)
+            batch_count = int(pend_b.size)
+    base = ResumeBase(stats)
+
+    def make_state() -> dict:
+        sd = base.snapshot_stats(stats, stream, ckpt)
+        return {
+            "kind": "buffcut-vec",
+            "config_json": config_json,
+            "n": n,
+            "pos": stream.tell(),
+            "block": block,
+            "loads": loads,
+            "batch": (np.concatenate(batch)[:batch_count] if batch
+                      else np.empty(0, dtype=np.int64)),
+            "stats": sd,
+            "state": pack_rescore(st),
+            "buf": pack_vector_buffer(buf),
+        }
 
     def note_peak(extra: int = 0) -> None:
         resident = st.adj.resident_bytes + stream.resident_bytes + extra
@@ -213,11 +261,16 @@ def _run(stream: NodeStreamBase, cfg: BuffCutConfig,
             admit(buf.evict(min(wave, len(buf) - cfg.buffer_size + 1)))
 
     pending: list[tuple[int, np.ndarray, np.ndarray, float]] = []
-    for rec in stream:
+    records = stream.iter_from(dict(resume["pos"])) if resume is not None else iter(stream)
+    for rec in records:
         pending.append(rec)
         if len(pending) == chunk:
             process_chunk(pending)
             pending = []
+            # chunk boundary: snapshots fire only here, so a resumed run
+            # groups the remaining records into the same chunks
+            if ckpt is not None:
+                ckpt.maybe_save(stats.n_batches, make_state)
     if pending:
         process_chunk(pending)
     while len(buf) > 0:
@@ -225,7 +278,5 @@ def _run(stream: NodeStreamBase, cfg: BuffCutConfig,
     commit_batch()
     stats.balance = float(loads.max() / (p.n_total / cfg.k)) if p.n_total > 0 else 1.0
     stats.block_loads = loads.tolist()
-    stats.stream_bytes_read = stream.bytes_read
-    stats.io_retries = int(getattr(stream, "io_retries", 0))
-    stats.runtime_s = time.perf_counter() - t0
+    base.fold(stats, stream, ckpt)
     return block, stats

@@ -1,7 +1,20 @@
 """Graph substrate of the port: CSR graphs, generators, stream orderings,
-in-memory stream."""
+in-memory and disk streams, METIS and packed IO, fault injection."""
 from repro_torch.graphs.csr import CSRGraph, bucket_size
-from repro_torch.graphs.generators import grid_mesh_graph, rmat_graph, sbm_graph
+from repro_torch.graphs.faults import FaultSchedule, FaultyFile, FaultyOpener
+from repro_torch.graphs.generators import (
+    generate_to_disk,
+    grid_mesh_graph,
+    grid_mesh_to_disk,
+    rgg_graph,
+    rhg_like_graph,
+    ring_graph,
+    ring_to_disk,
+    rmat_graph,
+    sbm_graph,
+    star_graph,
+)
+from repro_torch.graphs.io import read_metis, write_metis
 from repro_torch.graphs.orderings import (
     apply_order,
     bfs_order,
@@ -10,13 +23,33 @@ from repro_torch.graphs.orderings import (
     source_order,
 )
 from repro_torch.graphs.stream import NodeStream, NodeStreamBase, as_node_stream
+from repro_torch.graphs.stream_io import (
+    DiskNodeStream,
+    StreamFormatError,
+    open_stream,
+    permute_to_disk,
+    read_packed,
+    write_packed,
+)
 
 __all__ = [
     "CSRGraph",
     "bucket_size",
+    "FaultSchedule",
+    "FaultyFile",
+    "FaultyOpener",
+    "generate_to_disk",
     "grid_mesh_graph",
+    "grid_mesh_to_disk",
+    "rgg_graph",
+    "rhg_like_graph",
+    "ring_graph",
+    "ring_to_disk",
     "rmat_graph",
     "sbm_graph",
+    "star_graph",
+    "read_metis",
+    "write_metis",
     "apply_order",
     "bfs_order",
     "konect_order",
@@ -25,4 +58,10 @@ __all__ = [
     "NodeStream",
     "NodeStreamBase",
     "as_node_stream",
+    "DiskNodeStream",
+    "StreamFormatError",
+    "open_stream",
+    "permute_to_disk",
+    "read_packed",
+    "write_packed",
 ]

@@ -73,6 +73,18 @@ class CSRGraph:
     def total_edge_weight(self) -> float:
         return float(self.edge_w.astype(np.float64).sum() / 2.0)
 
+    def validate(self) -> None:
+        n = self.n
+        assert self.indptr[0] == 0 and self.indptr[-1] == self.indices.shape[0]
+        assert (np.diff(self.indptr) >= 0).all()
+        assert self.indices.min(initial=0) >= 0
+        assert self.indices.max(initial=-1) < n
+        assert self.edge_w.shape == self.indices.shape
+        assert self.node_w.shape == (n,)
+        # no self loops: a spot check, the full check is O(m)
+        for v in range(min(n, 64)):
+            assert v not in self.neighbors(v), f"self loop at {v}"
+
     @staticmethod
     def from_edges(
         n: int,

@@ -5,11 +5,13 @@ neighbor_weights, node_weight) tuples; global aggregates (`n`, `m`,
 `n_total`, `m_total`) are available before the first record, and
 `resident_bytes` reports the bytes the stream itself holds (0 for the
 in-memory stream: the wrapped graph is the input, not partitioner state).
+`NodeStream` wraps an in-memory graph; `DiskNodeStream`
+(graphs/stream_io.py) parses a file incrementally and never holds the CSR.
 
 `n_total` / `m_total` are float64 sums computed the same way from the same
 per-row values as the reference stream (`canonical_totals`), so
 `FennelParams` — and every assignment decision downstream — is
-bit-identical to `repro`'s.
+bit-identical to `repro`'s, and between a graph in memory and its file.
 """
 from __future__ import annotations
 
@@ -47,6 +49,10 @@ class NodeStreamBase:
 
     n: int
     m: int
+    # whether the stream carries non-unit edge / node weights (writers pick
+    # the packed-format flags from these); conservative default
+    has_edge_w: bool = True
+    has_node_w: bool = True
 
     @property
     def n_total(self) -> float:
@@ -62,6 +68,10 @@ class NodeStreamBase:
 
     @property
     def bytes_read(self) -> int:
+        return 0
+
+    @property
+    def io_retries(self) -> int:
         return 0
 
     def __iter__(self) -> Iterator[tuple[int, np.ndarray, np.ndarray, float]]:
@@ -83,6 +93,35 @@ class NodeStreamBase:
             f"{type(self).__name__} does not support positioned iteration"
         )
 
+    def chunks(self, chunk: int) -> Iterator[dict]:
+        """Yield contiguous chunks as padded-ELL dicts (generic path)."""
+        pend: list[tuple[int, np.ndarray, np.ndarray, float]] = []
+        for rec in self:
+            pend.append(rec)
+            if len(pend) == chunk:
+                yield _ell_chunk(pend)
+                pend = []
+        if pend:
+            yield _ell_chunk(pend)
+
+
+def _ell_chunk(records: list[tuple[int, np.ndarray, np.ndarray, float]]) -> dict:
+    """Pad a list of stream records into the ELL dict `CSRGraph.ell_block`
+    produces (same -1 / 0 padding, same width rounding)."""
+    rows = len(records)
+    w = max(8, ((max((r[1].size for r in records), default=1) + 7) // 8) * 8)
+    nbr = np.full((rows, w), -1, dtype=np.int32)
+    wts = np.zeros((rows, w), dtype=np.float32)
+    node_w = np.empty(rows, dtype=np.float32)
+    nodes = np.empty(rows, dtype=np.int64)
+    for i, (v, nb, nw_, vw) in enumerate(records):
+        d = nb.size
+        nbr[i, :d] = nb
+        wts[i, :d] = nw_
+        node_w[i] = vw
+        nodes[i] = v
+    return {"nodes": nodes, "nbr": nbr, "nbr_w": wts, "mask": nbr >= 0, "node_w": node_w}
+
 
 class NodeStream(NodeStreamBase):
     """In-memory stream over nodes 0..n-1 of `g` in id order."""
@@ -92,6 +131,8 @@ class NodeStream(NodeStreamBase):
         self.n = g.n
         self.m = g.m
         self._cursor = 0
+        self.has_edge_w = not np.all(g.edge_w == 1.0)
+        self.has_node_w = not np.all(g.node_w == 1.0)
         self._totals: tuple[float, float] | None = None
 
     def _compute_totals(self) -> tuple[float, float]:
@@ -124,6 +165,20 @@ class NodeStream(NodeStreamBase):
         for v in range(int(pos["index"]), g.n):
             self._cursor = v + 1
             yield v, g.neighbors(v), g.neighbor_weights(v), float(g.node_w[v])
+
+    def chunks(self, chunk: int) -> Iterator[dict]:
+        """Yield contiguous chunks as padded-ELL dicts (vectorized path)."""
+        g = self._g
+        for start in range(0, g.n, chunk):
+            nodes = np.arange(start, min(start + chunk, g.n), dtype=np.int64)
+            nbr, wts, mask = g.ell_block(nodes)
+            yield {
+                "nodes": nodes,
+                "nbr": nbr,
+                "nbr_w": wts,
+                "mask": mask,
+                "node_w": g.node_w[nodes],
+            }
 
 
 def as_node_stream(g: "CSRGraph | NodeStreamBase") -> NodeStreamBase:

@@ -143,12 +143,17 @@ def test_weighted_degrees_match_reference(small_rmat):
 
 
 def test_unported_driver_options_raise(small_grid):
+    """`ckpt`/`resume` are ported (tests/test_torch_checkpoint.py); each
+    driver refuses a resume state that is no snapshot of its own kind."""
+    from repro_torch.core import CheckpointError
+
     cfg = _port_cfg(_ref_cfg(), "sparse")
-    for driver in (buffcut_partition, buffcut_partition_pipelined,
-                   buffcut_partition_vectorized):
-        for kw in ({"ckpt": object()}, {"resume": {}}):
-            with pytest.raises(NotImplementedError):
-                driver(_port(small_grid), cfg, **kw)
+    for driver, other in ((buffcut_partition, "buffcut-vec"),
+                          (buffcut_partition_pipelined, "buffcut"),
+                          (buffcut_partition_vectorized, "buffcut-pipe")):
+        for resume in ({}, {"kind": other, "config_json": cfg.to_json(), "n": small_grid.n}):
+            with pytest.raises(CheckpointError, match="written by a"):
+                driver(_port(small_grid), cfg, resume=resume)
 
 
 @pytest.mark.parametrize("depth", [1, 2, 3])

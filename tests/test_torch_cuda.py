@@ -1,8 +1,10 @@
 """repro_torch on a CUDA card: the ell_histogram, swa_attention,
 embedding_bag and fennel_gain kernels (the public op's and the V-cycle's
 initial sweep) against their plain versions, DLRM forwards through the bag
-kernel, the device engines against the port's host `sparse` engine, and the
-pipelined driver's worker thread on the caller's stream.
+kernel, the device engines against the port's host `sparse` engine, the
+pipelined driver's worker thread on the caller's stream, and the
+out-of-core path on the device engine: a disk stream against the graph in
+memory, resume from a snapshot, and a restream pass with an exact cut.
 
 Every test is marked `cuda` and skips without a card.  The file imports
 neither jax nor the JAX package, so it runs on a machine that has only
@@ -536,3 +538,112 @@ def test_pipelined_worker_error_reaches_the_caller(card, monkeypatch):
                                     PipelineConfig(queue_depth=1, prefetch_batches=2))
     assert not [t for t in threading.enumerate()
                 if t.name in ("buffcut-t3", "prefetch-pump") and t.is_alive()]
+
+
+# --------------------------------------- out of core: disk, resume, restream
+
+def _ooc_cfg(engine):
+    from repro_torch.core import BuffCutConfig
+
+    return BuffCutConfig(k=8, buffer_size=1024, batch_size=256, d_max=64,
+                         ml=MultilevelConfig(engine=engine,
+                                             device="cuda" if engine == "torch" else "cpu"))
+
+
+@pytest.fixture
+def rmat_file(tmp_path):
+    from repro_torch.graphs import write_packed
+
+    g = rmat_graph(4096, 8, seed=7)
+    path = str(tmp_path / "rmat.bcsr")
+    write_packed(g, path, section_records=256)
+    return g, path
+
+
+@pytest.mark.parametrize("driver", ["sequential", "pipelined", "vectorized"])
+def test_disk_matches_memory_on_card(card, driver, rmat_file):
+    """engine "torch" on the card: the disk stream's labels and cut equal
+    the in-memory graph's, and every batch launched the sweep kernel."""
+    from repro_torch.core import (
+        PipelineConfig,
+        VectorizedConfig,
+        buffcut_partition,
+        buffcut_partition_pipelined,
+        buffcut_partition_vectorized,
+        edge_cut,
+    )
+    from repro_torch.graphs import DiskNodeStream
+
+    run = {"sequential": buffcut_partition,
+           "pipelined": lambda s, c: buffcut_partition_pipelined(s, c, PipelineConfig()),
+           "vectorized": lambda s, c: buffcut_partition_vectorized(
+               s, c, VectorizedConfig(wave=8, chunk=8))}[driver]
+    g, path = rmat_file
+    cfg = _ooc_cfg("torch")
+    want, want_s = run(g, cfg)
+    before, hist_before = fg.sweep_launches, eh.launches
+    got, got_s = run(DiskNodeStream(path), cfg)
+    assert np.array_equal(got, want)
+    assert got_s.cut_weight == want_s.cut_weight == edge_cut(g, got)
+    assert fg.sweep_launches - before == got_s.n_batches > 1
+    assert eh.launches > hist_before
+
+
+@pytest.mark.parametrize("driver", ["sequential", "pipelined", "vectorized"])
+def test_resume_on_card_is_bit_identical(card, driver, rmat_file, tmp_path, monkeypatch):
+    import shutil
+
+    import repro_torch.core.checkpoint as ckmod
+    from repro_torch.core import (
+        Checkpointer,
+        PipelineConfig,
+        VectorizedConfig,
+        buffcut_partition,
+        buffcut_partition_pipelined,
+        buffcut_partition_vectorized,
+        load_checkpoint,
+    )
+    from repro_torch.graphs import DiskNodeStream
+
+    run = {"sequential": buffcut_partition,
+           "pipelined": lambda s, c, **kw: buffcut_partition_pipelined(s, c, PipelineConfig(),
+                                                                       **kw),
+           "vectorized": lambda s, c, **kw: buffcut_partition_vectorized(
+               s, c, VectorizedConfig(wave=8, chunk=8), **kw)}[driver]
+    _, path = rmat_file
+    cfg = _ooc_cfg("torch")
+    want, want_s = run(DiskNodeStream(path), cfg)
+    real, copies = ckmod.save_checkpoint, []
+
+    def tee(p, state):
+        real(p, state)
+        copies.append(str(tmp_path / f"{len(copies)}.ckpt"))
+        shutil.copy(p, copies[-1])
+
+    monkeypatch.setattr(ckmod, "save_checkpoint", tee)
+    got, got_s = run(DiskNodeStream(path), cfg, ckpt=Checkpointer(str(tmp_path / "c"), every=4))
+    monkeypatch.undo()
+    assert np.array_equal(got, want) and got_s.checkpoints_written == len(copies) > 0
+    for snap in (copies[0], copies[-1]):
+        res, res_s = run(DiskNodeStream(path), cfg, resume=load_checkpoint(snap))
+        assert np.array_equal(res, want) and res_s.cut_weight == want_s.cut_weight
+
+
+@pytest.mark.parametrize("order", ["stream", "priority"])
+def test_restream_pass_on_card_keeps_an_exact_cut(card, order, rmat_file):
+    from repro_torch.core import buffcut_partition, edge_cut, restream_refine
+    from repro_torch.graphs import DiskNodeStream
+
+    g, path = rmat_file
+    cfg = _ooc_cfg("torch")
+    b0, s0 = buffcut_partition(DiskNodeStream(path), cfg)
+    before = fg.sweep_launches
+    b1, info = restream_refine(DiskNodeStream(path), b0, cfg, 1, order=order,
+                               initial_cut=s0.cut_weight,
+                               initial_loads=np.asarray(s0.block_loads))
+    assert info.cut_weight == edge_cut(g, b1)
+    assert fg.sweep_launches - before == info.passes[0]["n_batches"] > 0
+    want, winfo = restream_refine(g, b0, _ooc_cfg("sparse"), 1, order=order,
+                                  initial_cut=s0.cut_weight,
+                                  initial_loads=np.asarray(s0.block_loads))
+    assert np.array_equal(b1, want) and info.cut_weight == winfo.cut_weight

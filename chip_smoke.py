@@ -123,7 +123,43 @@ Phases, each of which fails the run (non-zero exit, no result line):
               stream order: the incrementally kept cut equal to edge_cut
               on the refined labels, the balance cap, one sweep launch per
               V-cycle; prints the cut before and after, the moves, the
-              seconds and the peak resident bytes.
+              seconds and the peak resident bytes;
+19. shard     `shard_partition(workers=4, load_sync_every=2)` (thread
+              backend) at phase 5's full width in memory: complete labels,
+              the merged cut equal to edge_cut, block_loads equal to the
+              labels' bincount, sync rounds n_batches // 2 per worker,
+              histogram launches and one sweep launch per V-cycle, every
+              V-cycle off the calling thread.  Then, on a 256x256 mesh at
+              the full-width ratios (Q = n/4, delta = n/32: 8 batches a
+              shard, as at full width; a full-width sharded run takes twice
+              the sequential one, so the disk run is cut to keep the script
+              in time), the same from a packed file with prefetch 2 in every
+              worker (the boundary scan, the merge legs, another thread
+              schedule) against the same in memory: labels, cut and loads
+              equal, stream_bytes_read = split + workers + merge; one
+              priority restream pass from the file seeded with the merge,
+              its kept cut equal to edge_cut.  On phase 3's R-MAT: W = 4 on
+              torch/cuda inside torch.cuda.stream(s) equal to W = 4 on the
+              host sparse engine, every V-cycle on s off the calling thread;
+              W = 1 equal to buffcut_partition;
+              backend="process" refused for torch/cuda before any fork, and
+              equal to the thread backend on sparse; prints runtime_s,
+              split_s, pool_s, ml_time_s, the intra/cross cut and balance
+              (not capped: stale loads between syncs) beside phase 5's;
+20. serve partition
+              a PartitionService on phase 5's labels (paper settings,
+              engine torch) driven through a ServeSession by run_workload
+              with churn_ops(updates=256, ops=1024, frac_del=0.25,
+              node_adds=256, lookup_every=4, lookup_size=4096,
+              refine_every=8, seed=0): 262k edge operations, 33 refines;
+              the resident cut equal to edge_cut of the exported graph,
+              loads equal to the labels' bincount, every lookup's labels
+              equal to the service's at that point, one sweep launch per
+              V-cycle, V-cycles off the calling thread; prints p50/p99 of
+              each verb, updates/s, lookups/s, the cut before and after and
+              the V-cycle count.  On phase 3's R-MAT the same kind of op
+              list on torch/cuda, on sparse and on torch/cuda again gives
+              the same labels, cut and lookup checksum.
 
 Phase 2 also runs swa_attention's general paths (G = 32, D = 36 in bf16, a
 strided q with an int64 pos) and phase 10 fennel_gain at k = 65,536 (the
@@ -163,6 +199,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1983,6 +2020,327 @@ def phase_restream(path: str, side: int, block, stats) -> tuple[int, int]:
     return total[0], total[1]
 
 
+def rmat_config(engine: str = "torch"):
+    """Phase 3's R-MAT settings: k = 32, Q = 16384, delta = 8192."""
+    from repro_torch.core import BuffCutConfig, MultilevelConfig
+
+    device = "cpu" if engine == "sparse" else "cuda"
+    return BuffCutConfig(k=32, buffer_size=16384, batch_size=8192,
+                         ml=MultilevelConfig(engine=engine, device=device))
+
+
+def check_merged(g, cfg, block, stats, info, what: str) -> None:
+    """Complete labels, the merged cut equal to edge_cut, block_loads
+    equal to the bincount of the labels, intra + cross == cut."""
+    import numpy as np
+
+    from repro_torch.core.metrics import edge_cut
+
+    check(block.shape == (g.n,) and bool((block >= 0).all()) and bool((block < cfg.k).all()),
+          f"{what}: labels incomplete or outside [0, k)")
+    cut = edge_cut(g, block)
+    check(stats.cut_weight == cut, f"{what}: merged cut {stats.cut_weight} != edge_cut {cut}")
+    loads = np.bincount(block, minlength=cfg.k).astype(np.float64)
+    check(np.array_equal(np.asarray(stats.block_loads), loads),
+          f"{what}: block_loads differ from the bincount of the labels")
+    check(info["cut_intra_shard"] + info["cut_cross_shard"] == stats.cut_weight,
+          f"{what}: intra + cross != the merged cut")
+
+
+def ratio_config(side: int):
+    """Phase 5's settings scaled to a side x side mesh at the full-width
+    run's ratios: k = 32, Q = n/4, delta = n/32 (so each of 4 shards holds
+    8 batches, as at full width)."""
+    n = side * side
+    return dataclasses.replace(full_width_config(), buffer_size=n // 4, batch_size=n // 32)
+
+
+def phase_shard(side: int, full_stats):
+    """The sharded driver (W = 4 threads) at phase 5's full width in
+    memory; then disk against memory on a SHARD_DISK_SIDE mesh at the
+    full-width ratios and one reconciliation restream pass; on phase 3's
+    R-MAT the engine, W = 1, stream and backend checks.  Returns the
+    full-width run's (histogram, sweep) launches, the disk run's and the
+    restream's."""
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import buffcut_partition, edge_cut, restream_refine
+    from repro_torch.distributed import ShardPool, shard_partition
+    from repro_torch.graphs import DiskNodeStream, grid_mesh_graph, grid_mesh_to_disk, rmat_graph
+    from repro_torch.kernels import ell_histogram as eh
+    from repro_torch.kernels import fennel_gain as fg
+
+    g = grid_mesh_graph(side)
+    cfg = full_width_config()
+    main_thread = threading.get_ident()
+    with counted_vcycles(threading.get_ident) as threads:
+        eh.launches = fg.sweep_launches = 0
+        block, stats, info = shard_partition(g, cfg, workers=4, load_sync_every=2,
+                                             backend="thread")
+        launches, sweeps = eh.launches, fg.sweep_launches
+    check_merged(g, cfg, block, stats, info, "shard, memory")
+    per = info["per_worker"]
+    check(info["sync_rounds"] == [p["n_batches"] // 2 for p in per],
+          f"shard: sync rounds {info['sync_rounds']} for batches {[p['n_batches'] for p in per]}")
+    check(launches > 0, "shard: no ell_histogram launch")
+    check(sweeps == len(threads) == stats.n_batches > 0,
+          f"shard: {sweeps} fennel_sweep launches in {len(threads)} device V-cycles for "
+          f"{stats.n_batches} batches")
+    check(main_thread not in threads, "shard: a V-cycle ran on the calling thread")
+    log(f"[shard] grid_mesh_graph({side}), paper settings, shard_partition(workers=4, "
+        f"load_sync_every=2, thread): batches={stats.n_batches} "
+        f"({[p['n_batches'] for p in per]}), sync_rounds={info['sync_rounds']}; "
+        f"runtime_s={stats.runtime_s:.3f} split_s={info['split_s']:.3f} "
+        f"pool_s={info['pool_s']:.3f} ml_time_s={stats.ml_time_s:.3f} (summed over workers) "
+        f"(phase 5: runtime_s {full_stats.runtime_s:.3f} ml_time_s {full_stats.ml_time_s:.3f}); "
+        f"cut={stats.cut_weight:.0f} (== edge_cut; intra-shard {info['cut_intra_shard']:.0f}, "
+        f"cross-shard {info['cut_cross_shard']:.0f}; phase 5 {full_stats.cut_weight:.0f}) "
+        f"balance={stats.balance:.6f} (phase 5 {full_stats.balance:.6f}); "
+        f"ell_histogram_launches={launches} fennel_sweep_launches={sweeps} on "
+        f"{len(set(threads))} worker threads, none the caller")
+
+    # disk against memory, on a smaller mesh at the full-width ratios (a
+    # full-width sharded run takes 2x the sequential one: the four host
+    # loops share one interpreter lock): the boundary scan and the merge
+    # legs, with prefetch 2 in every worker (another thread schedule)
+    dside = SHARD_DISK_SIDE
+    dg, dcfg = grid_mesh_graph(dside), ratio_config(dside)
+    OOC_DIR.mkdir(parents=True, exist_ok=True)
+    path = str(OOC_DIR / f"grid{dside}.bcsr")
+    grid_mesh_to_disk(dside, path)
+    mblock, mstats, minfo = shard_partition(dg, dcfg, workers=4, load_sync_every=2)
+    check_merged(dg, dcfg, mblock, mstats, minfo, "shard, small mesh in memory")
+    with counted_vcycles(lambda: 1) as vcycles:
+        eh.launches = fg.sweep_launches = 0
+        dblock, dstats, dinfo = shard_partition(DiskNodeStream(path), dcfg, workers=4,
+                                                load_sync_every=2, prefetch_batches=2)
+        dlaunches, dsweeps = eh.launches, fg.sweep_launches
+    check_merged(dg, dcfg, dblock, dstats, dinfo, "shard, disk")
+    check(np.array_equal(dblock, mblock), "shard: disk labels differ from memory's")
+    check(dstats.cut_weight == mstats.cut_weight and dstats.block_loads == mstats.block_loads,
+          "shard: disk cut or loads differ from memory's")
+    check(dinfo["sync_rounds"] == minfo["sync_rounds"] == [4, 4, 4, 4],
+          f"shard, disk: sync rounds {dinfo['sync_rounds']}")
+    worker_bytes = sum(p["stream_bytes_read"] for p in dinfo["per_worker"])
+    check(dstats.stream_bytes_read == dinfo["split_bytes"] + worker_bytes + dinfo["merge_bytes"],
+          "shard, disk: stream_bytes_read is not split + workers + merge")
+    check(dsweeps == len(vcycles) == dstats.n_batches and dlaunches > 0,
+          f"shard, disk: {dsweeps} fennel_sweep launches in {len(vcycles)} V-cycles")
+    log(f"[shard] grid_mesh_to_disk({dside}) (n={dg.n}, k=32, Q={dcfg.buffer_size}, "
+        f"delta={dcfg.batch_size}), W=4, load_sync_every=2: DiskNodeStream with "
+        f"prefetch_batches=2 in each worker == in memory (labels, cut {dstats.cut_weight:.0f}, "
+        f"loads; sync_rounds {dinfo['sync_rounds']}); runtime_s disk {dstats.runtime_s:.3f} "
+        f"(split_s {dinfo['split_s']:.3f}, pool_s {dinfo['pool_s']:.3f}), memory "
+        f"{mstats.runtime_s:.3f}; balance={dstats.balance:.6f}; stream_bytes_read="
+        f"{dstats.stream_bytes_read} (split {dinfo['split_bytes']} + workers {worker_bytes} + "
+        f"merge {dinfo['merge_bytes']}) peak_resident_bytes={dstats.peak_resident_bytes}; "
+        f"ell_histogram_launches={dlaunches} fennel_sweep_launches={dsweeps}")
+
+    # reconciliation: one priority restream pass from the file, seeded
+    # with the disk run's merge
+    with counted_vcycles(lambda: 1) as vcycles:
+        eh.launches = fg.sweep_launches = 0
+        t0 = time.perf_counter()
+        refined, rinfo = restream_refine(DiskNodeStream(path), dblock, dcfg, 1,
+                                         order="priority", initial_cut=dstats.cut_weight,
+                                         initial_loads=np.asarray(dstats.block_loads))
+        secs = time.perf_counter() - t0
+        rlaunches, rsweeps = eh.launches, fg.sweep_launches
+    Path(path).unlink()
+    rcut = edge_cut(dg, refined)
+    check(rinfo.cut_weight == rcut, f"reconcile: kept cut {rinfo.cut_weight} != edge_cut {rcut}")
+    check(rsweeps == len(vcycles) == rinfo.passes[0]["n_batches"] > 0,
+          f"reconcile: {rsweeps} fennel_sweep launches in {len(vcycles)} V-cycles")
+    log(f"[shard] reconcile: restream_refine(order=priority, 1 pass) from the file, seeded "
+        f"with the merged labels, cut and loads: cut {rinfo.passes[0]['cut_before']:.0f} -> "
+        f"{rinfo.cut_weight:.0f} (== edge_cut), moved={rinfo.passes[0]['moved']}, {secs:.3f} s, "
+        f"balance={rinfo.balance:.6f}; ell_histogram_launches={rlaunches} "
+        f"fennel_sweep_launches={rsweeps}")
+
+    # phase 3's R-MAT: torch == sparse, W = 1 == the driver, a side stream,
+    # the process backend
+    rg = rmat_graph(2**16, 8, seed=0)
+    dev, host = rmat_config("torch"), rmat_config("sparse")
+    t0 = time.perf_counter()
+    want, want_s, _ = shard_partition(rg, host, workers=4, load_sync_every=2)
+    t_host = time.perf_counter() - t0
+    s = torch.cuda.Stream()
+    with counted_vcycles(lambda: (threading.get_ident(), torch.cuda.current_stream())) as seen:
+        with torch.cuda.stream(s):
+            got, got_s, _ = shard_partition(rg, dev, workers=4, load_sync_every=2)
+    check(np.array_equal(got, want) and got_s.cut_weight == want_s.cut_weight,
+          "shard on R-MAT: torch/cuda labels differ from sparse")
+    check(len(seen) == got_s.n_batches > 0 and
+          all(tid != main_thread and cur == s for tid, cur in seen),
+          "shard on R-MAT: a V-cycle ran off the caller's stream or on the calling thread")
+    one, one_s, _ = shard_partition(rg, dev, workers=1)
+    seq, seq_s = buffcut_partition(rg, dev)
+    check(np.array_equal(one, seq) and one_s.cut_weight == seq_s.cut_weight,
+          "shard on R-MAT: W = 1 differs from buffcut_partition")
+    start = ShardPool.start
+
+    def forked(self):
+        raise AssertionError("the pool started")
+
+    ShardPool.start = forked
+    try:
+        try:
+            shard_partition(rg, dev, workers=4, backend="process")
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+    finally:
+        ShardPool.start = start
+    check("fork" in refused and not multiprocessing.active_children(),
+          "shard: backend='process' with torch on cuda was not refused before a fork")
+    t0 = time.perf_counter()
+    proc, proc_s, _ = shard_partition(rg, host, workers=4, load_sync_every=2, backend="process")
+    t_proc = time.perf_counter() - t0
+    check(np.array_equal(proc, want) and proc_s.block_loads == want_s.block_loads,
+          "shard on R-MAT: process backend differs from thread backend (sparse)")
+    check(not multiprocessing.active_children(), "shard: a forked worker outlived its run")
+    log(f"[shard] rmat_graph(2**16, 8), k=32, Q=16384, delta=8192, W=4, load_sync_every=2: "
+        f"torch/cuda inside torch.cuda.stream(s) == sparse (cut {got_s.cut_weight:.0f}, "
+        f"{len(seen)} V-cycles on worker threads with current stream s); "
+        f"W=1 == buffcut_partition; "
+        f"backend='process' refused for torch/cuda before a fork (\"{refused[:60]}...\"); "
+        f"process == thread on sparse (process {t_proc:.2f} s, thread {t_host:.2f} s, "
+        f"torch/cuda {got_s.runtime_s:.2f} s)")
+    return (launches, sweeps), (dlaunches, dsweeps), (rlaunches, rsweeps)
+
+
+# phase 19's disk-against-memory mesh (n = 65,536, at the full-width ratios)
+SHARD_DISK_SIDE = 256
+
+# phase 20's workload: 256 updates of 1024 edge ops, a lookup of 4096
+# nodes after every 4th, a refine after every 8th
+SERVE_CHURN = dict(updates=256, ops=1024, frac_del=0.25, node_adds=256, lookup_every=4,
+                   lookup_size=4096, refine_every=8, seed=0)
+
+
+class LookupRecorder:
+    """`run_workload`'s target: forwards every verb to a `ServeSession`;
+    keeps each lookup's nodes and answer, and before each refine a copy of
+    the service's labels (labels change only in refines, and node adds
+    append), so every answer is checked after the run against the labels
+    it was given under."""
+
+    def __init__(self, sess):
+        self.sess = sess
+        self.answers = []   # (nodes, labels returned, index of the snapshot that holds)
+        self.snaps = []
+
+    def lookup(self, nodes):
+        out = self.sess.lookup(nodes)
+        self.answers.append((nodes, out, len(self.snaps)))
+        return out
+
+    def update(self, **kw):
+        return self.sess.update(**kw)
+
+    def refine(self, budget=None):
+        self.snaps.append(self.sess.service.labels)
+        return self.sess.refine(budget)
+
+    def verify(self) -> int:
+        """Number of answers checked; fails the run on any mismatch."""
+        self.snaps.append(self.sess.service.labels)
+        import numpy as np
+
+        for i, (nodes, out, snap) in enumerate(self.answers):
+            check(np.array_equal(out, self.snaps[snap][nodes]),
+                  f"serve: lookup {i}'s labels differ from the service's at that point")
+        return len(self.answers)
+
+
+def serve_run(g, labels, cfg, ops, cut=None, loads=None):
+    """A PartitionService on `labels`, driven through a ServeSession by
+    run_workload; returns (service, report, recorder, V-cycle threads)."""
+    from repro_torch.serve import PartitionService, ServeSession, run_workload
+
+    svc = PartitionService(g, labels, cfg, cut_weight=cut, block_loads=loads)
+    with counted_vcycles(threading.get_ident) as threads:
+        with ServeSession(svc) as sess:
+            rec = LookupRecorder(sess)
+            report = run_workload(rec, ops)
+    return svc, report, rec, threads
+
+
+def phase_serve_partition(side: int, full_block, full_stats):
+    """The partition service on phase 5's labels of the mesh under 262k
+    churn operations (engine torch on the card), then on phase 3's R-MAT
+    the same op list on torch and on sparse.  Returns the histogram and
+    sweep launches of the mesh run."""
+    import numpy as np
+
+    from repro_torch.core import buffcut_partition, edge_cut
+    from repro_torch.graphs import grid_mesh_graph, rmat_graph
+    from repro_torch.kernels import ell_histogram as eh
+    from repro_torch.kernels import fennel_gain as fg
+    from repro_torch.serve import ChurnSpec, churn_ops
+
+    g = grid_mesh_graph(side)
+    cfg = full_width_config()
+    t0 = time.perf_counter()
+    ops = churn_ops(g, ChurnSpec(**SERVE_CHURN))
+    t_gen = time.perf_counter() - t0
+    n_edge_ops = sum(len(p["insert_edges"] or ()) + len(p["delete_edges"] or ())
+                     for k, p in ops if k == "update")
+    eh.launches = fg.sweep_launches = 0
+    svc, rep, rec, threads = serve_run(g, full_block, cfg, ops, full_stats.cut_weight,
+                                       np.asarray(full_stats.block_loads))
+    launches, sweeps = eh.launches, fg.sweep_launches
+    checked = rec.verify()
+    t0 = time.perf_counter()
+    cut = edge_cut(svc.export_graph(), svc.labels)
+    t_check = time.perf_counter() - t0
+    check(svc.cut_weight == cut, f"serve: resident cut {svc.cut_weight} != edge_cut {cut}")
+    loads = np.bincount(svc.labels, minlength=cfg.k).astype(np.float64)
+    check(np.array_equal(svc.block_loads, loads), "serve: loads differ from the labels' bincount")
+    refines = svc.counters["refines"]
+    check(sweeps == len(threads) > 0 and launches > 0,
+          f"serve: {sweeps} fennel_sweep launches in {len(threads)} device V-cycles")
+    check(threading.get_ident() not in threads, "serve: a V-cycle ran on the calling thread")
+    cut0 = full_stats.cut_weight
+    log(f"[serve] PartitionService on phase 5's labels of grid_mesh_graph({side}), paper "
+        f"settings, engine torch, through a ServeSession by run_workload: churn_ops("
+        f"{SERVE_CHURN}) made {len(ops)} ops ({n_edge_ops} edge ops) in {t_gen:.3f} s; "
+        f"lookup p50/p99 {rep['lookup']['p50_ms']:.3f}/{rep['lookup']['p99_ms']:.3f} ms, "
+        f"update p50/p99 {rep['update']['p50_ms']:.3f}/{rep['update']['p99_ms']:.3f} ms, "
+        f"refine p50/p99 {rep['refine']['p50_ms']:.3f}/{rep['refine']['p99_ms']:.3f} ms "
+        f"({rep['refine']['count']} refines, each with the recorder's copy of the labels); "
+        f"updates_per_s={rep['update']['updates_per_s']:.0f} "
+        f"lookups_per_s={rep['lookup']['lookups_per_s']:.0f} (nodes); cut {cut0:.0f} -> "
+        f"{svc.cut_weight:.0f} (== edge_cut of the exported graph, {t_check:.3f} s), "
+        f"balance={svc.balance:.6f}, n={svc.n} m={svc.m}; {checked} lookups equal the labels "
+        f"they were served under (checksum {rep['lookup_checksum']}); refines={refines} "
+        f"redecided={svc.counters['redecided']} V-cycles={len(threads)} on "
+        f"{len(set(threads))} worker thread(s); ell_histogram_launches={launches} "
+        f"fennel_sweep_launches={sweeps}")
+
+    rg = rmat_graph(2**16, 8, seed=0)
+    labels, _ = buffcut_partition(rg, rmat_config("sparse"))
+    rops = churn_ops(rg, ChurnSpec(updates=64, ops=256, frac_del=0.25, node_adds=64,
+                                   lookup_every=4, lookup_size=1024, refine_every=8, seed=0))
+    runs = [serve_run(rg, labels, rmat_config(e), rops) for e in ("torch", "sparse", "torch")]
+    for svc_, rep_, rec_, _ in runs:
+        rec_.verify()
+    (a, ra, _, va), (b, rb, _, _), (c, _, _, _) = runs
+    check(np.array_equal(a.labels, b.labels) and a.cut_weight == b.cut_weight
+          and ra["lookup_checksum"] == rb["lookup_checksum"],
+          "serve on R-MAT: torch/cuda labels differ from sparse")
+    check(np.array_equal(a.labels, c.labels), "serve on R-MAT: two torch runs differ")
+    check(a.cut_weight == edge_cut(a.export_graph(), a.labels), "serve on R-MAT: cut not exact")
+    log(f"[serve] rmat_graph(2**16, 8), k=32, Q=16384, delta=8192, {len(rops)} ops: torch/cuda "
+        f"== sparse == torch/cuda again (labels, cut {a.cut_weight:.0f}, checksum); "
+        f"{len(va)} V-cycles; refine p50 torch {ra['refine']['p50_ms']:.3f} ms, sparse "
+        f"{rb['refine']['p50_ms']:.3f} ms")
+    return launches, sweeps
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -2058,10 +2416,15 @@ def main(argv: list[str] | None = None) -> int:
     crash = timed("crash", phase_crash, path, *disk[2][:2])
     restream = timed("restream", phase_restream, path, side, *disk[2][:2])
     Path(path).unlink()
-    log(f"[kernels] launches of phases 16-18 beside phase 5's (the kernels line): "
+    shard, shard_disk, reconcile = timed("shard", phase_shard, side, full_stats)
+    served = timed("serve partition", phase_serve_partition, side, full_block, full_stats)
+    log(f"[kernels] launches of phases 16-20 beside phase 5's (the kernels line): "
         f"ell_histogram {hist['launches']}; disk {disk[2][2]} and {disk[0][2]}, resume "
-        f"{crash[0]}, restream {restream[0]}; fennel_sweep {sweeps}; disk {disk[2][3]} and "
-        f"{disk[0][3]}, resume {crash[1]}, restream {restream[1]}")
+        f"{crash[0]}, restream {restream[0]}, shard {shard[0]}, shard from disk "
+        f"{shard_disk[0]}, reconcile {reconcile[0]}, serve {served[0]}; fennel_sweep {sweeps}; "
+        f"disk {disk[2][3]} and {disk[0][3]}, resume {crash[1]}, restream {restream[1]}, "
+        f"shard {shard[1]}, shard from disk {shard_disk[1]}, reconcile {reconcile[1]}, "
+        f"serve {served[1]}")
     log(f"[env] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [hist, swa, bag, fennel, sweep]}))
     print(gpu_name_and_limit())

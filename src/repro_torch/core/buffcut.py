@@ -198,16 +198,36 @@ def buffcut_partition(
     """
     if cfg.ml.engine != "sparse":
         preflight(cfg.ml.device)
+    return _buffcut_partition(g, cfg, prefetch_batches=prefetch_batches, ckpt=ckpt,
+                              resume=resume)
+
+
+def _buffcut_partition(
+    g: CSRGraph | NodeStreamBase,
+    cfg: BuffCutConfig,
+    *,
+    prefetch_batches: int = 0,
+    ckpt: Checkpointer | None = None,
+    resume: dict | None = None,
+    on_batch=None,
+) -> tuple[np.ndarray, StreamStats]:
+    """`buffcut_partition` without `preflight`: the sharded driver's
+    workers enter here after the caller checked the device once.
+
+    `on_batch(n_batches, loads)` fires at every commit boundary with the
+    live per-block loads, which it may rewrite in place (the sharded
+    load-sync hook of distributed/shard_driver.py).
+    """
     stream = maybe_prefetch(as_node_stream(g), prefetch_batches, cfg.batch_size)
     try:
-        return _run(stream, cfg, ckpt, resume)
+        return _run(stream, cfg, ckpt, resume, on_batch)
     finally:
         if isinstance(stream, PrefetchStream):
             stream.close()  # joins the pump on every exit path
 
 
 def _run(stream: NodeStreamBase, cfg: BuffCutConfig, ckpt: Checkpointer | None,
-         resume: dict | None) -> tuple[np.ndarray, StreamStats]:
+         resume: dict | None, on_batch=None) -> tuple[np.ndarray, StreamStats]:
     n = stream.n
     spec = cfg.score_spec()
     p = FennelParams(
@@ -279,6 +299,8 @@ def _run(stream: NodeStreamBase, cfg: BuffCutConfig, ckpt: Checkpointer | None,
                 _apply(pq, *st.bump_block_counts(int(u), int(b_)))
         st.release(bnodes)
         batch.clear()
+        if on_batch is not None:
+            on_batch(stats.n_batches, loads)
 
     def evict_one() -> None:
         u = pq.extract_max()

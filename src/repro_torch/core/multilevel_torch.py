@@ -33,6 +33,7 @@ scalars per level.
 from __future__ import annotations
 
 import math
+import threading
 import time
 
 import numpy as np
@@ -66,7 +67,8 @@ class _AggTuner:
     candidate modes — one untimed warmup call per mode, then ``TIMED``
     timed calls per mode, each synchronized with the device — then commits
     to the fastest mean.  All modes give identical labels, so exploration
-    changes wall clock, never output.
+    changes wall clock, never output.  One tuner serves every thread of the
+    process (the sharded driver's workers), under a lock.
     """
 
     WARMUP = 1
@@ -75,25 +77,28 @@ class _AggTuner:
     def __init__(self) -> None:
         self._samples: dict[tuple, dict[str, list[float]]] = {}
         self._decided: dict[tuple, str] = {}
+        self._lock = threading.Lock()
 
     def choose(self, key: tuple, candidates: tuple[str, ...]) -> tuple[str, bool]:
         """Return ``(mode, explore)``; ``explore`` asks the caller to time
         this call and feed the duration back through `record`."""
-        if key in self._decided:
-            return self._decided[key], False
-        per = self._samples.setdefault(key, {m: [] for m in candidates})
-        mode = min(candidates, key=lambda m: len(per[m]))
-        if len(per[mode]) >= self.WARMUP + self.TIMED:
-            best = min(
-                candidates,
-                key=lambda m: sum(per[m][self.WARMUP:]) / self.TIMED,
-            )
-            self._decided[key] = best
-            return best, False
-        return mode, True
+        with self._lock:
+            if key in self._decided:
+                return self._decided[key], False
+            per = self._samples.setdefault(key, {m: [] for m in candidates})
+            mode = min(candidates, key=lambda m: len(per[m]))
+            if len(per[mode]) >= self.WARMUP + self.TIMED:
+                best = min(
+                    candidates,
+                    key=lambda m: sum(per[m][self.WARMUP:]) / self.TIMED,
+                )
+                self._decided[key] = best
+                return best, False
+            return mode, True
 
     def record(self, key: tuple, mode: str, dt: float) -> None:
-        self._samples[key][mode].append(dt)
+        with self._lock:
+            self._samples[key][mode].append(dt)
 
 
 _TUNER = _AggTuner()
@@ -101,7 +106,8 @@ _TUNER = _AggTuner()
 
 def agg_decisions() -> dict[tuple, str]:
     """Committed (phase, n_pad, l_pad) -> mode picks so far."""
-    return dict(_TUNER._decided)
+    with _TUNER._lock:
+        return dict(_TUNER._decided)
 
 
 def reset_agg_tuner() -> None:

@@ -70,6 +70,12 @@ class AdjacencyCache:
         self._node_w: dict[int, float] = {}
         self.resident_bytes = 0
 
+    def __len__(self) -> int:
+        return len(self._nbr)
+
+    def __contains__(self, v: int) -> bool:
+        return v in self._nbr
+
     def put(self, v: int, nbrs: np.ndarray, weights: np.ndarray, node_w: float) -> None:
         nb = np.ascontiguousarray(nbrs, dtype=np.int64)
         w = np.ascontiguousarray(weights, dtype=np.float64)

@@ -22,13 +22,15 @@ from repro_torch.graphs.orderings import (
     random_order,
     source_order,
 )
-from repro_torch.graphs.stream import NodeStream, NodeStreamBase, as_node_stream
+from repro_torch.graphs.stream import NodeStream, NodeStreamBase, StreamShard, as_node_stream
 from repro_torch.graphs.stream_io import (
     DiskNodeStream,
     StreamFormatError,
     open_stream,
     permute_to_disk,
     read_packed,
+    shard_boundary_pass,
+    shard_ranges,
     write_packed,
 )
 
@@ -57,11 +59,14 @@ __all__ = [
     "source_order",
     "NodeStream",
     "NodeStreamBase",
+    "StreamShard",
     "as_node_stream",
     "DiskNodeStream",
     "StreamFormatError",
     "open_stream",
     "permute_to_disk",
     "read_packed",
+    "shard_boundary_pass",
+    "shard_ranges",
     "write_packed",
 ]

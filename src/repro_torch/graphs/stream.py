@@ -181,6 +181,84 @@ class NodeStream(NodeStreamBase):
             }
 
 
+
+class StreamShard(NodeStreamBase):
+    """A contiguous id-range view [lo, hi) of a replayable parent stream.
+
+    The sharded driver (distributed/shard_driver.py) hands one of these to
+    each worker: records stream exactly as the parent would yield them for
+    ids lo..hi-1, but the *aggregates* stay global — ``n`` sizes the label
+    array and ``n_total``/``m_total`` feed `FennelParams`, so every worker
+    scores against the same whole-graph balance targets the sequential
+    driver uses (a shard-local n would skew gamma and the load cap).
+
+    ``make_iter`` is a zero-argument factory returning a fresh record
+    iterator positioned at record ``lo`` (``NodeStream.iter_from`` for
+    in-memory parents, ``DiskNodeStream.iter_from(token)`` for disk parents
+    — the boundary token comes from `graphs.stream_io.shard_boundary_pass`).
+    Iteration stops after ``hi - lo`` records; a parent that runs out
+    earlier raises (truncated shard), never a silent short stream.  Each
+    `StreamShard` owns its parent handle, so per-worker IO accounting
+    (`resident_bytes`, `bytes_read`, `io_retries`) is private to the shard.
+    """
+
+    def __init__(self, parent: NodeStreamBase, make_iter, lo: int, hi: int):
+        if not (0 <= lo <= hi <= parent.n):
+            raise ValueError(
+                f"shard range [{lo}, {hi}) is outside the stream's [0, {parent.n})"
+            )
+        self._parent = parent
+        self._make_iter = make_iter
+        self.lo = int(lo)
+        self.hi = int(hi)
+        self.n = parent.n
+        self.m = parent.m
+        self.has_edge_w = parent.has_edge_w
+        self.has_node_w = parent.has_node_w
+        self._totals = (parent.n_total, parent.m_total)
+
+    @property
+    def n_local(self) -> int:
+        return self.hi - self.lo
+
+    @property
+    def n_total(self) -> float:
+        return self._totals[0]
+
+    @property
+    def m_total(self) -> float:
+        return self._totals[1]
+
+    @property
+    def resident_bytes(self) -> int:
+        return self._parent.resident_bytes
+
+    @property
+    def bytes_read(self) -> int:
+        return self._parent.bytes_read
+
+    @property
+    def io_retries(self) -> int:
+        return self._parent.io_retries
+
+    def __iter__(self) -> Iterator[tuple[int, np.ndarray, np.ndarray, float]]:
+        seen = 0
+        for rec in self._make_iter():
+            if rec[0] != self.lo + seen:
+                raise ValueError(
+                    f"shard [{self.lo}, {self.hi}) expected record "
+                    f"{self.lo + seen}, parent yielded {rec[0]}: the shard "
+                    "iterator factory is positioned wrong"
+                )
+            yield rec
+            seen += 1
+            if seen == self.n_local:
+                return
+        raise ValueError(
+            f"shard [{self.lo}, {self.hi}) ended after {seen} of "
+            f"{self.n_local} records: the parent stream was truncated"
+        )
+
 def as_node_stream(g: "CSRGraph | NodeStreamBase") -> NodeStreamBase:
     """Drivers accept either a CSRGraph (wrapped in-memory) or any stream."""
     if isinstance(g, NodeStreamBase):

@@ -900,6 +900,58 @@ def read_packed(path: str, io_chunk_bytes: int = DEFAULT_IO_CHUNK) -> CSRGraph:
     return materialize_records(stream.n, (rec[1:] for rec in stream))
 
 
+# ------------------------------------------------------- shard splitting
+
+
+def shard_ranges(n: int, workers: int) -> "list[tuple[int, int]]":
+    """Contiguous near-equal id ranges [(lo, hi), ...] covering [0, n).
+
+    Same span arithmetic as `permute_to_disk`'s destination-range buckets:
+    span = ceil(n / workers), so every range but the last has identical
+    width and empty trailing ranges are dropped (n < workers collapses to
+    fewer, single-node shards).
+    """
+    if n < 0:
+        raise ValueError(f"n must be >= 0, got {n}")
+    if workers < 1:
+        raise ValueError(f"workers must be >= 1, got {workers}")
+    if n == 0:
+        return [(0, 0)]
+    span = max(1, (n + workers - 1) // workers)
+    return [(lo, min(lo + span, n)) for lo in range(0, n, span)]
+
+
+def shard_boundary_pass(
+    stream: DiskNodeStream, ranges: "list[tuple[int, int]]"
+) -> "tuple[list[dict], int]":
+    """One bounded scan collecting the resume token at each shard's first
+    record — the disk-source shard split.
+
+    An id-contiguous split needs only the byte position where each range
+    starts: workers then `iter_from` their token on private file handles
+    and read nothing outside their range.  The scan parses up to the last
+    boundary (not the whole file) and returns the tokens plus the bytes it
+    read; for v2 packed files each token re-enters at a section start, so
+    the CRC re-verification survives the split.
+    """
+    tokens: "list[dict]" = [stream.tell()]  # range 0 starts at the head
+    it = iter(stream)
+    v = 0
+    for lo, _hi in ranges[1:]:
+        while v < lo:
+            try:
+                next(it)
+            except StopIteration:
+                raise StreamFormatError(
+                    f"{stream.path}: stream ended at record {v} while "
+                    f"scanning for the shard boundary at {lo}"
+                ) from None
+            v += 1
+        tokens.append(stream.tell())
+    it.close()
+    return tokens, stream.bytes_read
+
+
 # ------------------------------------------------------- on-disk permute
 
 

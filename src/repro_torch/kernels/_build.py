@@ -5,7 +5,10 @@ use it is compiled for sm_90a into `build/repro_torch/<name>-<hash>.so` at
 the root of the checkout (a directory `.gitignore` lists), keyed by a hash
 of the source and the flags, and loaded once per process.  `build_all`
 starts one nvcc per source at once, so a cold start pays for the slowest
-kernel, not the sum.  Nothing here runs at import time.
+kernel, not the sum.  One lock serializes `build_all` and `load` across
+the threads of a process (the temporary file is named by process, and
+threads that build one library would share it).  Nothing here runs at
+import time.
 """
 from __future__ import annotations
 
@@ -14,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -26,6 +30,7 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_LOCK = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -72,9 +77,10 @@ def _finish(name: str, out: Path, proc: subprocess.Popen | None) -> None:
 def build_all(names: tuple[str, ...] = SOURCES) -> float:
     """Compile every missing kernel library in parallel; returns seconds."""
     t0 = time.perf_counter()
-    started = [(name, *_start(name)) for name in names]
-    for name, out, proc in started:
-        _finish(name, out, proc)
+    with _LOCK:
+        started = [(name, *_start(name)) for name in names]
+        for name, out, proc in started:
+            _finish(name, out, proc)
     return time.perf_counter() - t0
 
 
@@ -86,9 +92,10 @@ def build_log(name: str) -> str:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded kernel library `name`, built first if needed."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        build_all((name,))
-        lib = ctypes.CDLL(str(library_path(name)))
-        _LOADED[name] = lib
-    return lib
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            build_all((name,))
+            lib = ctypes.CDLL(str(library_path(name)))
+            _LOADED[name] = lib
+        return lib

@@ -25,12 +25,16 @@ launches and nothing else.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from repro_torch.kernels import _build
 
 launches = 0
+# several threads may launch at once (the sharded driver's workers), so
+# each count is taken under this lock
+_count_lock = threading.Lock()
 
 _INT_MAX = 2**31 - 1
 
@@ -85,13 +89,20 @@ def _launcher():
 
 def block_histogram(nbr_blk: torch.Tensor, nbr_w: torch.Tensor, k: int) -> torch.Tensor:
     """counts (B, k) float32: the weighted per-row label histogram."""
-    global launches
     _check(nbr_blk, nbr_w, k)
     device = nbr_blk.device
     if device.type == "cpu":
         return ell_histogram_plain(nbr_blk, nbr_w, int(k))
     if device.type != "cuda":
         raise ValueError(f"block_histogram runs on cpu or cuda tensors, got {device}")
+    return _histogram_on_card(nbr_blk, nbr_w, int(k))
+
+
+def _histogram_on_card(nbr_blk: torch.Tensor, nbr_w: torch.Tensor, k: int) -> torch.Tensor:
+    """The card path of `block_histogram`: one launch on the current
+    stream of the tensors' device, counted."""
+    global launches
+    device = nbr_blk.device
     b, w = nbr_blk.shape
     counts = torch.empty((b, int(k)), dtype=torch.float32, device=device)
     if counts.numel() == 0:
@@ -103,5 +114,6 @@ def block_histogram(nbr_blk: torch.Tensor, nbr_w: torch.Tensor, k: int) -> torch
                      b, w, int(k), stream)
     if err != 0:
         raise RuntimeError(f"ell_histogram launch failed with CUDA error {err}")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return counts

@@ -27,12 +27,15 @@ name, as the reference's does: reach the module itself with
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from repro_torch.kernels import _build
 
 launches = 0
+# several threads may launch at once, so each count is taken under this lock
+_count_lock = threading.Lock()
 
 
 def _stacked(table: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor):
@@ -118,5 +121,6 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor) ->
                      b * t, t, v, d, n_slots, stream)
     if err != 0:
         raise RuntimeError(f"embedding_bag launch failed with CUDA error {err}")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return out

@@ -53,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import numpy as np
 import torch
@@ -62,6 +63,9 @@ from repro_torch.kernels.ell_histogram import ell_histogram_plain
 
 launches = 0
 sweep_launches = 0
+# several threads may launch at once (the sharded driver's workers), so
+# each count is taken under this lock
+_count_lock = threading.Lock()
 
 _ERR_SHARED_MEMORY = -1
 _ERR_SHAPE = -2
@@ -259,7 +263,8 @@ def fennel_choose_batch(nbr_blk: torch.Tensor, nbr_w: torch.Tensor, loads: torch
                      float(alpha) * float(gamma), float(gamma) - 1.0, stream)
     if err != 0:
         raise RuntimeError(f"fennel_gain launch failed with CUDA error {err}")
-    launches += 1
+    with _count_lock:
+        launches += 1
     return best, score
 
 
@@ -358,5 +363,6 @@ def fennel_sweep(esrc, edst, ew, node_w, order, indptr, labels0, loads0, n_free:
                          f"kernel takes")
     if err != 0:
         raise RuntimeError(f"fennel_sweep launch failed with CUDA error {err}")
-    sweep_launches += 1
+    with _count_lock:
+        sweep_launches += 1
     return labels, loads

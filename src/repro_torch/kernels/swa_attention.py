@@ -45,12 +45,15 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
 from repro_torch.kernels import _build
 
 launches = 0
+# several threads may launch at once, so each count is taken under this lock
+_count_lock = threading.Lock()
 
 _NEG_INF = -1e30
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -244,14 +247,16 @@ def swa_attention_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.
     scale = 1.0 / float(d) ** 0.5
     if g <= _MAX_GROUPS:
         _launch(q, k_cache, v_cache, pos, out, window, scale, index)
-        launches += 1
+        with _count_lock:
+            launches += 1
     else:
         for g0 in range(0, g, _MAX_GROUPS):
             part = torch.empty_like(q[:, :, g0:g0 + _MAX_GROUPS])
             _launch(q[:, :, g0:g0 + _MAX_GROUPS].contiguous(), k_cache, v_cache, pos, part,
                     window, scale, index)
             out[:, :, g0:g0 + _MAX_GROUPS] = part
-            launches += 1
+            with _count_lock:
+                launches += 1
     return out[..., :d] if padded else out
 
 

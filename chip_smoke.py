@@ -34,12 +34,16 @@ Phases, each of which fails the run (non-zero exit, no result line):
               on this route, and the kernel held against its plain version
               on the largest and the last inputs the route gave it, and
               timed on the largest against its bound and scatter_add_;
-5. full       the BuffCut driver at full width: grid mesh 1024x1024
-              (n = 2^20) with the paper's §4 settings (k=32, eps=0.03,
-              Q=262144, delta=32768, HAA) on the device engine; requires
-              valid labels, an exact streamed cut, histogram kernel
-              launches on this path and one sweep kernel launch per device
-              V-cycle;
+5. full       the BuffCut driver at full width through the front door,
+              `repro_torch.api.partition(g, DriverConfig(buffcut=...,
+              pipeline=PipelineConfig(prefetch_batches=0)),
+              driver="buffcut")` (T1 inline, as the direct call of earlier
+              versions ran): grid mesh 1024x1024 (n = 2^20) with the
+              paper's §4 settings (k=32, eps=0.03, Q=262144, delta=32768,
+              HAA) on the device engine; requires valid labels, an exact
+              streamed cut, histogram kernel launches on this path and one
+              sweep kernel launch per device V-cycle; prints the facade's
+              own time (provenance runtime_s minus the driver's);
 6. profile    per-stage time of one full-width batch V-cycle, each stage
               synchronized, and the initial partition's step count; keeps
               the coarsest level for phase 13;
@@ -147,8 +151,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
               split_s, pool_s, ml_time_s, the intra/cross cut and balance
               (not capped: stale loads between syncs) beside phase 5's;
 20. serve partition
-              a PartitionService on phase 5's labels (paper settings,
-              engine torch) driven through a ServeSession by run_workload
+              a PartitionService promoted from phase 5's result by
+              `PartitionResult.into_service()` (paper settings, engine
+              torch; its cut and loads equal phase 5's) driven through a
+              ServeSession by run_workload
               with churn_ops(updates=256, ops=1024, frac_del=0.25,
               node_adds=256, lookup_every=4, lookup_size=4096,
               refine_every=8, seed=0): 262k edge operations, 33 refines;
@@ -159,7 +165,22 @@ Phases, each of which fails the run (non-zero exit, no result line):
               each verb, updates/s, lookups/s, the cut before and after and
               the V-cycle count.  On phase 3's R-MAT the same kind of op
               list on torch/cuda, on sparse and on torch/cuda again gives
-              the same labels, cut and lookup checksum.
+              the same labels, cut and lookup checksum;
+21. api       the front door: `repro_torch.api.cli.main(["partition",
+              FILE, -k 32, --buffer-size 262144, --batch-size 32768,
+              --d-max 10000, --engine torch, --driver pipelined, --json
+              OUT])` on phase 16's packed file: the JSON's labels bit-equal
+              to phase 5's, the same cut ratio and balance, provenance
+              source kind "packed", every byte read, histogram launches
+              and one sweep launch per batch; HeiStream through
+              `partition(g, DriverConfig(paper settings), driver=
+              "heistream")` at full width: valid labels, the result's cut
+              equal to edge_cut, loads within L_max, 32 sweep launches
+              (one per V-cycle), its cut and runtime_s beside phase 5's;
+              HeiStream on phase 3's R-MAT on torch/cuda equal to host
+              sparse; and `repro_torch.launch.serve.main(["--arch",
+              "partition", "--graph", "gen:grid:side=256", ...])` on the
+              card.
 
 Phase 2 also runs swa_attention's general paths (G = 32, D = 36 in bf16, a
 strided q with an int64 pos) and phase 10 fennel_gain at k = 65,536 (the
@@ -201,6 +222,7 @@ import subprocess
 import sys
 import threading
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -858,13 +880,15 @@ def phase_auto(side: int) -> float:
 
 
 def phase_full(side: int):
-    """Returns the histogram and the sweep launches of the run, its labels
-    and its stats."""
+    """The sequential driver at full width through the front door,
+    `repro_torch.api.partition`.  Returns the histogram and the sweep
+    launches of the run, its labels, its stats and the `PartitionResult`."""
     import numpy as np
 
     import repro_torch.core.multilevel_torch as mlt
-    from repro_torch.core import buffcut_partition
+    from repro_torch.api import DriverConfig, partition
     from repro_torch.core.metrics import cut_ratio, edge_cut
+    from repro_torch.core.pipeline import PipelineConfig
     from repro_torch.graphs import grid_mesh_graph
     from repro_torch.kernels import ell_histogram as eh
     from repro_torch.kernels import fennel_gain as fg
@@ -882,10 +906,16 @@ def phase_full(side: int):
     mlt.multilevel_partition_torch = counted
     try:
         eh.launches = sw.launches = fg.sweep_launches = 0
-        block, stats = buffcut_partition(g, cfg)
+        # prefetch 0 (T1 inline), as earlier versions of this script ran it
+        dc = DriverConfig(buffcut=cfg, pipeline=PipelineConfig(prefetch_batches=0))
+        res = partition(g, dc, driver="buffcut")
         launches, swa_launches, sweeps = eh.launches, sw.launches, fg.sweep_launches
     finally:
         mlt.multilevel_partition_torch = engine
+    block, stats = res.labels, res.stats
+    check(res.provenance["driver"] == "buffcut" and res.provenance["device"] == "cuda"
+          and res.provenance["config"]["pipeline"]["prefetch_batches"] == 0,
+          f"the API ran {res.provenance['driver']} on {res.provenance['device']}")
     check(block.shape == (g.n,) and bool((block >= 0).all()) and bool((block < cfg.k).all()),
           "labels outside [0, k)")
     cut = edge_cut(g, block)
@@ -895,13 +925,19 @@ def phase_full(side: int):
           f"{sweeps} fennel_sweep launches in {len(vcycles)} device V-cycles, expected one each")
     loads = np.bincount(block, minlength=cfg.k)
     check(loads.max() <= np.ceil(1.03 * g.n / cfg.k), "balance cap violated")
-    log(f"[full] grid_mesh_graph({side}): n={g.n} m={g.m} batches={stats.n_batches} "
-        f"cut_ratio={cut_ratio(g, block):.6f} balance={stats.balance:.6f} "
-        f"runtime_s={stats.runtime_s:.3f} ml_time_s={stats.ml_time_s:.3f} "
-        f"nodes_per_s={g.n / stats.runtime_s:.0f} ell_histogram_launches={launches} "
-        f"fennel_sweep_launches={sweeps} (device V-cycles {len(vcycles)}) "
-        f"swa_attention_launches={swa_launches}")
-    return launches, sweeps, block, stats
+    check(res.cut_weight == cut and res.balance == stats.balance,
+          "the result's metrics differ from the run's")
+    prov_s = res.provenance["runtime_s"]
+    log(f"[full] repro_torch.api.partition(grid_mesh_graph({side}), DriverConfig(paper "
+        f"settings, engine torch), driver='buffcut') (prefetch_batches="
+        f"{res.provenance['config']['pipeline']['prefetch_batches']}): n={g.n} m={g.m} "
+        f"batches={stats.n_batches} cut_ratio={cut_ratio(g, block):.6f} "
+        f"balance={stats.balance:.6f} runtime_s={stats.runtime_s:.3f} "
+        f"ml_time_s={stats.ml_time_s:.3f} nodes_per_s={g.n / stats.runtime_s:.0f} "
+        f"provenance runtime_s={prov_s:.3f} (facade {prov_s - stats.runtime_s:.3f} s) "
+        f"ell_histogram_launches={launches} fennel_sweep_launches={sweeps} (device V-cycles "
+        f"{len(vcycles)}) swa_attention_launches={swa_launches}")
+    return launches, sweeps, block, stats, res
 
 
 def phase_profile(side: int):
@@ -2256,12 +2292,11 @@ class LookupRecorder:
         return len(self.answers)
 
 
-def serve_run(g, labels, cfg, ops, cut=None, loads=None):
-    """A PartitionService on `labels`, driven through a ServeSession by
+def serve_run(svc, ops):
+    """`svc` (a PartitionService) driven through a ServeSession by
     run_workload; returns (service, report, recorder, V-cycle threads)."""
-    from repro_torch.serve import PartitionService, ServeSession, run_workload
+    from repro_torch.serve import ServeSession, run_workload
 
-    svc = PartitionService(g, labels, cfg, cut_weight=cut, block_loads=loads)
     with counted_vcycles(threading.get_ident) as threads:
         with ServeSession(svc) as sess:
             rec = LookupRecorder(sess)
@@ -2269,29 +2304,37 @@ def serve_run(g, labels, cfg, ops, cut=None, loads=None):
     return svc, report, rec, threads
 
 
-def phase_serve_partition(side: int, full_block, full_stats):
-    """The partition service on phase 5's labels of the mesh under 262k
-    churn operations (engine torch on the card), then on phase 3's R-MAT
-    the same op list on torch and on sparse.  Returns the histogram and
-    sweep launches of the mesh run."""
+def phase_serve_partition(side: int, full_res):
+    """The partition service promoted from phase 5's result
+    (`PartitionResult.into_service`) under 262k churn operations (engine
+    torch on the card), then on phase 3's R-MAT the same op list on torch
+    and on sparse.  Returns the histogram and sweep launches of the mesh
+    run."""
     import numpy as np
 
     from repro_torch.core import buffcut_partition, edge_cut
-    from repro_torch.graphs import grid_mesh_graph, rmat_graph
+    from repro_torch.graphs import rmat_graph
     from repro_torch.kernels import ell_histogram as eh
     from repro_torch.kernels import fennel_gain as fg
-    from repro_torch.serve import ChurnSpec, churn_ops
+    from repro_torch.serve import ChurnSpec, PartitionService, churn_ops
 
-    g = grid_mesh_graph(side)
+    full_stats = full_res.stats
+    g = full_res.graph
     cfg = full_width_config()
     t0 = time.perf_counter()
     ops = churn_ops(g, ChurnSpec(**SERVE_CHURN))
     t_gen = time.perf_counter() - t0
     n_edge_ops = sum(len(p["insert_edges"] or ()) + len(p["delete_edges"] or ())
                      for k, p in ops if k == "update")
+    t0 = time.perf_counter()
+    svc0 = full_res.into_service()
+    t_promote = time.perf_counter() - t0
+    check(svc0.cut_weight == full_stats.cut_weight, "into_service: cut differs from phase 5's")
+    check(np.array_equal(svc0.block_loads, np.asarray(full_stats.block_loads)),
+          "into_service: loads differ from phase 5's")
+    check(svc0.cfg.to_json() == cfg.to_json(), "into_service: config differs from phase 5's")
     eh.launches = fg.sweep_launches = 0
-    svc, rep, rec, threads = serve_run(g, full_block, cfg, ops, full_stats.cut_weight,
-                                       np.asarray(full_stats.block_loads))
+    svc, rep, rec, threads = serve_run(svc0, ops)
     launches, sweeps = eh.launches, fg.sweep_launches
     checked = rec.verify()
     t0 = time.perf_counter()
@@ -2305,7 +2348,8 @@ def phase_serve_partition(side: int, full_block, full_stats):
           f"serve: {sweeps} fennel_sweep launches in {len(threads)} device V-cycles")
     check(threading.get_ident() not in threads, "serve: a V-cycle ran on the calling thread")
     cut0 = full_stats.cut_weight
-    log(f"[serve] PartitionService on phase 5's labels of grid_mesh_graph({side}), paper "
+    log(f"[serve] PartitionService from phase 5's result (into_service, {t_promote:.3f} s) "
+        f"on grid_mesh_graph({side}), paper "
         f"settings, engine torch, through a ServeSession by run_workload: churn_ops("
         f"{SERVE_CHURN}) made {len(ops)} ops ({n_edge_ops} edge ops) in {t_gen:.3f} s; "
         f"lookup p50/p99 {rep['lookup']['p50_ms']:.3f}/{rep['lookup']['p99_ms']:.3f} ms, "
@@ -2325,7 +2369,8 @@ def phase_serve_partition(side: int, full_block, full_stats):
     labels, _ = buffcut_partition(rg, rmat_config("sparse"))
     rops = churn_ops(rg, ChurnSpec(updates=64, ops=256, frac_del=0.25, node_adds=64,
                                    lookup_every=4, lookup_size=1024, refine_every=8, seed=0))
-    runs = [serve_run(rg, labels, rmat_config(e), rops) for e in ("torch", "sparse", "torch")]
+    runs = [serve_run(PartitionService(rg, labels, rmat_config(e)), rops)
+            for e in ("torch", "sparse", "torch")]
     for svc_, rep_, rec_, _ in runs:
         rec_.verify()
     (a, ra, _, va), (b, rb, _, _), (c, _, _, _) = runs
@@ -2339,6 +2384,117 @@ def phase_serve_partition(side: int, full_block, full_stats):
         f"{len(va)} V-cycles; refine p50 torch {ra['refine']['p50_ms']:.3f} ms, sparse "
         f"{rb['refine']['p50_ms']:.3f} ms")
     return launches, sweeps
+
+
+def phase_api(path: str, side: int, full_res) -> dict:
+    """Phase 21, the front door: (a) `python -m repro_torch partition`'s
+    `main` with the pipelined driver on phase 16's packed file, its JSON
+    labels bit-equal to phase 5's; (b) HeiStream through the API at full
+    width on the card (one sweep launch per V-cycle), and on phase 3's
+    R-MAT equal to the host `sparse` engine; (c) the serve CLI's
+    `--arch partition` on the card.  Returns the launches of (a) and (b)."""
+    import contextlib
+    import io
+    import os
+
+    import numpy as np
+
+    from repro_torch.api import DriverConfig, partition
+    from repro_torch.api.cli import main as cli_main
+    from repro_torch.core.metrics import edge_cut
+    from repro_torch.graphs import rmat_graph
+    from repro_torch.kernels import ell_histogram as eh
+    from repro_torch.kernels import fennel_gain as fg
+    from repro_torch.launch import serve
+
+    full_block, full_stats = full_res.labels, full_res.stats
+    g = full_res.graph
+    size = os.path.getsize(path)
+    out = str(OOC_DIR / "api_partition.json")
+    cfg = full_width_config()  # phase 5's settings as CLI flags
+    argv = ["partition", path, "-k", str(cfg.k), "--buffer-size", str(cfg.buffer_size),
+            "--batch-size", str(cfg.batch_size), "--d-max", f"{cfg.d_max:g}", "--engine",
+            cfg.ml.engine, "--driver", "pipelined", "--json", out]
+    eh.launches = fg.sweep_launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        rc = cli_main(argv)
+    t_cli = time.perf_counter() - t0
+    cli = {"ell_histogram": eh.launches, "fennel_sweep": fg.sweep_launches}
+    check(rc == 0, f"api: the CLI exited with {rc}")
+    with open(out) as f:
+        blob = json.load(f)
+    os.remove(out)
+    prov, st = blob["provenance"], blob["stats"]
+    check(np.array_equal(np.asarray(blob["labels"], dtype=np.int64), full_block),
+          "api: the CLI's JSON labels differ from phase 5's")
+    check(blob["metrics"]["cut_ratio"] == full_res.cut_ratio
+          and blob["metrics"]["balance"] == full_res.balance,
+          "api: the CLI's cut ratio or balance differs from phase 5's")
+    check(st["cut_weight"] == full_stats.cut_weight, "api: the CLI's cut differs from phase 5's")
+    check(prov["source"]["kind"] == "packed" and prov["driver"] == "buffcut-pipe"
+          and prov["device"] == "cuda" and prov["engine"] == "torch",
+          f"api: provenance {prov['source']['kind']}, {prov['driver']}, {prov['device']}")
+    check(st["stream_bytes_read"] >= size - 64,
+          f"api: read {st['stream_bytes_read']} of the file's {size} bytes")
+    check(cli["ell_histogram"] > 0 and cli["fennel_sweep"] == st["n_batches"] > 0,
+          f"api: CLI launches {cli}, {st['n_batches']} batches")
+    log(f"[api] python -m repro_torch {' '.join(argv[:-2])} (phase 16's file, {size} bytes): "
+        f"exit 0 in {t_cli:.3f} s; {said.getvalue().strip().splitlines()[0]}; JSON labels == "
+        f"phase 5's, cut={st['cut_weight']:.0f} balance={st['balance']:.6f}, "
+        f"runtime_s={st['runtime_s']:.3f} T2 {st['runtime_s'] - st['t3_wait_s']:.3f} s "
+        f"ml_time_s={st['ml_time_s']:.3f} provenance runtime_s={prov['runtime_s']:.3f} "
+        f"(facade {prov['runtime_s'] - st['runtime_s']:.3f} s), stream_bytes_read="
+        f"{st['stream_bytes_read']}; ell_histogram_launches={cli['ell_histogram']} "
+        f"fennel_sweep_launches={cli['fennel_sweep']}")
+
+    with counted_vcycles(lambda: 1) as vcycles:
+        eh.launches = fg.sweep_launches = 0
+        hs = partition(g, DriverConfig(buffcut=cfg), driver="heistream")
+        hei = {"ell_histogram": eh.launches, "fennel_sweep": fg.sweep_launches}
+    labels = hs.labels
+    check(labels.shape == (g.n,) and bool((labels >= 0).all()) and bool((labels < cfg.k).all()),
+          "heistream: labels outside [0, k)")
+    cut = edge_cut(g, labels)
+    check(hs.cut_weight == cut, f"heistream: cut {hs.cut_weight} != edge_cut {cut}")
+    loads = np.bincount(labels, minlength=cfg.k)
+    check(loads.max() <= np.ceil((1 + cfg.eps) * g.n / cfg.k),
+          f"heistream: balance {hs.balance} over the cap L_max")
+    check(hei["fennel_sweep"] == len(vcycles) == hs.stats.n_batches == 32,
+          f"heistream: {hei['fennel_sweep']} sweep launches in {len(vcycles)} V-cycles, "
+          f"{hs.stats.n_batches} batches (expected 32)")
+    check(hei["ell_histogram"] > 0, "heistream: no ell_histogram launch")
+    prov_s = hs.provenance["runtime_s"]
+    log(f"[api] partition(grid_mesh_graph({side}), paper settings, engine torch, "
+        f"driver='heistream'): batches={hs.stats.n_batches} cut={cut:.0f} "
+        f"cut_ratio={hs.cut_ratio:.6f} balance={hs.balance:.6f} runtime_s="
+        f"{hs.stats.runtime_s:.3f} ml_time_s={hs.stats.ml_time_s:.3f} provenance runtime_s="
+        f"{prov_s:.3f} (facade {prov_s - hs.stats.runtime_s:.3f} s); phase 5 (BuffCut): "
+        f"cut={full_stats.cut_weight:.0f} runtime_s={full_stats.runtime_s:.3f}; "
+        f"ell_histogram_launches={hei['ell_histogram']} fennel_sweep_launches="
+        f"{hei['fennel_sweep']} (device V-cycles {len(vcycles)})")
+
+    rg = rmat_graph(2**16, 8, seed=0)
+    rk = dict(k=32, buffer_size=16384, batch_size=8192, driver="heistream")
+    dev = partition(rg, engine="torch", device="cuda", **rk)
+    host = partition(rg, engine="sparse", device="cpu", **rk)
+    check(np.array_equal(dev.labels, host.labels) and dev.cut_weight == host.cut_weight,
+          "heistream on R-MAT: torch/cuda labels differ from the host sparse engine's")
+    log(f"[api] heistream on rmat_graph(2**16, 8), k=32, delta=8192: torch/cuda == sparse "
+        f"(labels, cut {dev.cut_weight:.0f}); runtime_s torch {dev.stats.runtime_s:.3f} s, "
+        f"sparse {host.stats.runtime_s:.3f} s")
+
+    sargs = ["--arch", "partition", "--graph", "gen:grid:side=256", "--k", "32", "--batch",
+             "4096", "--queries", "64"]
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as said:
+        serve.main(sargs)
+    line = said.getvalue().strip()
+    check(line.startswith("partition serve: driver=buffcut device=cuda n=65536 k=32 "),
+          f"api: serve --arch partition printed {line!r}")
+    log(f"[api] python -m repro_torch.launch.serve {' '.join(sargs)}: "
+        f"{time.perf_counter() - t0:.3f} s; {line}")
+    return {"cli": cli, "heistream": hei}
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -2362,6 +2518,9 @@ def main(argv: list[str] | None = None) -> int:
         sys.path.insert(0, str(args.src.resolve()))
     import repro_torch  # noqa: F401  (fails in a directory without the port)
 
+    # the phases call the legacy driver functions beside the API on purpose
+    warnings.filterwarnings("ignore", message=r".* is deprecated; call repro_torch\.api",
+                            category=DeprecationWarning)
     # float32 products stay float32 on every path of this run
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2399,7 +2558,7 @@ def main(argv: list[str] | None = None) -> int:
     timed("parity", phase_parity)
     hist["max_abs_err"] = max(hist["max_abs_err"], timed("auto", phase_auto, AUTO_SIDE))
     side = 1024
-    hist["launches"], sweeps, full_block, full_stats = timed("full", phase_full, side)
+    hist["launches"], sweeps, full_block, full_stats, full_res = timed("full", phase_full, side)
     coarsest = timed("profile", phase_profile, side)
     swa["launches"] = timed("serve", phase_serve)
     timed("decode", phase_decode_vs_train)
@@ -2415,16 +2574,19 @@ def main(argv: list[str] | None = None) -> int:
     path, disk = timed("disk", phase_disk, side, full_block, full_stats)
     crash = timed("crash", phase_crash, path, *disk[2][:2])
     restream = timed("restream", phase_restream, path, side, *disk[2][:2])
-    Path(path).unlink()
     shard, shard_disk, reconcile = timed("shard", phase_shard, side, full_stats)
-    served = timed("serve partition", phase_serve_partition, side, full_block, full_stats)
-    log(f"[kernels] launches of phases 16-20 beside phase 5's (the kernels line): "
+    served = timed("serve partition", phase_serve_partition, side, full_res)
+    api = timed("api", phase_api, path, side, full_res)
+    Path(path).unlink()
+    log(f"[kernels] launches of phases 16-21 beside phase 5's (the kernels line): "
         f"ell_histogram {hist['launches']}; disk {disk[2][2]} and {disk[0][2]}, resume "
         f"{crash[0]}, restream {restream[0]}, shard {shard[0]}, shard from disk "
-        f"{shard_disk[0]}, reconcile {reconcile[0]}, serve {served[0]}; fennel_sweep {sweeps}; "
-        f"disk {disk[2][3]} and {disk[0][3]}, resume {crash[1]}, restream {restream[1]}, "
-        f"shard {shard[1]}, shard from disk {shard_disk[1]}, reconcile {reconcile[1]}, "
-        f"serve {served[1]}")
+        f"{shard_disk[0]}, reconcile {reconcile[0]}, serve {served[0]}, CLI "
+        f"{api['cli']['ell_histogram']}, heistream {api['heistream']['ell_histogram']}; "
+        f"fennel_sweep {sweeps}; disk {disk[2][3]} and {disk[0][3]}, resume {crash[1]}, "
+        f"restream {restream[1]}, shard {shard[1]}, shard from disk {shard_disk[1]}, "
+        f"reconcile {reconcile[1]}, serve {served[1]}, CLI {api['cli']['fennel_sweep']}, "
+        f"heistream {api['heistream']['fennel_sweep']}")
     log(f"[env] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [hist, swa, bag, fennel, sweep]}))
     print(gpu_name_and_limit())

@@ -1,6 +1,9 @@
 """BuffCut in PyTorch and CUDA: the port of the JAX package `repro`.
 
-Host code (stream, buffer, scores, batch model, host V-cycle engines) is
+The front door is `repro_torch.api.partition` (CLI: `python -m
+repro_torch`), over the three BuffCut drivers and the HeiStream, Cuttana,
+Fennel and LDG baselines.  Host code (stream, buffer, scores, batch
+model, host V-cycle engines, the baselines but HeiStream's V-cycle) is
 numpy as in the reference; the device V-cycle (`core/multilevel_torch.py`)
 and the neighbor-label histogram kernel run on a CUDA card.  The model
 substrate so far is LM serving and DLRM serving (`configs/`, `models/`,

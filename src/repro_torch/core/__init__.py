@@ -1,5 +1,14 @@
 """The BuffCut algorithm library of the port."""
 from repro_torch.core.buffcut import BuffCutConfig, StreamStats, buffcut_partition
+from repro_torch.core.cuttana import CuttanaConfig, cuttana_partition
+from repro_torch.core.fennel import FennelParams, fennel_choose, fennel_partition, ldg_partition
+from repro_torch.core.heistream import heistream_partition
+from repro_torch.core.histogram import (
+    best_label_per_src,
+    label_histogram_ell,
+    neighbor_label_weights,
+    sorted_neighbor_label_weights,
+)
 from repro_torch.core.checkpoint import (
     CheckpointError,
     Checkpointer,
@@ -41,6 +50,17 @@ __all__ = [
     "Checkpointer",
     "load_checkpoint",
     "save_checkpoint",
+    "CuttanaConfig",
+    "cuttana_partition",
+    "FennelParams",
+    "fennel_choose",
+    "fennel_partition",
+    "ldg_partition",
+    "heistream_partition",
+    "best_label_per_src",
+    "label_histogram_ell",
+    "neighbor_label_weights",
+    "sorted_neighbor_label_weights",
     "IncrementalCut",
     "balance",
     "block_loads",

@@ -24,6 +24,7 @@ import time
 import numpy as np
 
 from repro_torch.core.batch_model import build_batch_model_from_adj
+from repro_torch.core._deprecation import warn_legacy
 from repro_torch.core.buffer import BucketPQ
 from repro_torch.core.checkpoint import (
     Checkpointer,
@@ -178,8 +179,9 @@ def buffcut_partition(
     ckpt: Checkpointer | None = None,
     resume: dict | None = None,
 ) -> tuple[np.ndarray, StreamStats]:
-    """Partition a node stream into `cfg.k` blocks; returns (block, stats).
+    """Deprecated shim: `repro_torch.api.partition` is the front door.
 
+    Partitions a node stream into `cfg.k` blocks; returns (block, stats).
     Before the first record the device is checked and, for a card, the
     kernel libraries are built and loaded (`repro_torch.device.preflight`),
     so a missing card or a kernel that does not build fails the run before
@@ -196,6 +198,7 @@ def buffcut_partition(
     snapshot, continues the run from it with labels bit-identical to the
     uninterrupted run's.
     """
+    warn_legacy("buffcut_partition(g, cfg)", "partition(g, driver='buffcut', k=...)")
     if cfg.ml.engine != "sparse":
         preflight(cfg.ml.device)
     return _buffcut_partition(g, cfg, prefetch_batches=prefetch_batches, ckpt=ckpt,
@@ -211,8 +214,9 @@ def _buffcut_partition(
     resume: dict | None = None,
     on_batch=None,
 ) -> tuple[np.ndarray, StreamStats]:
-    """`buffcut_partition` without `preflight`: the sharded driver's
-    workers enter here after the caller checked the device once.
+    """`buffcut_partition` without `preflight` or the deprecation warning:
+    the API and the sharded driver's workers enter here after the caller
+    checked the device once.
 
     `on_batch(n_batches, loads)` fires at every commit boundary with the
     live per-block loads, which it may rewrite in place (the sharded

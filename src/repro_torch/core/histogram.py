@@ -4,6 +4,8 @@ sparse path (`neighbor_label_weights`)
     Composite-key `np.bincount` over compacted labels: key = src·L + lab′,
     O(m + n·L); O(m) when every label is distinct (the CSR is then already
     the histogram); sort-aggregation above `dense_cap`.
+    `sorted_neighbor_label_weights` is the O(m log m) argsort formulation
+    it replaced, kept as the baseline.
 
 dense/ELL path (`label_histogram_ell`)
     Packs neighbor labels into the padded ELL layout and runs the port's
@@ -67,6 +69,31 @@ def aggregate_by_key(
     uk = key_s[starts]
     keep = sums != 0
     return uk[keep], sums[keep]
+
+
+def sorted_neighbor_label_weights(
+    g: CSRGraph, labels: np.ndarray
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The O(m log m) sort-aggregation formulation (argsort + reduceat):
+    the seed's baseline, equal to `neighbor_label_weights`.  Labels are
+    compacted first so the composite key never collides or overflows for
+    arbitrary label values."""
+    if g.indices.size == 0:
+        e = np.empty(0, dtype=np.int64)
+        return e, e.copy(), np.empty(0)
+    labc, uniq = compact_labels(labels)
+    L = np.int64(uniq.shape[0])
+    src = _edge_src(g)
+    key = src * L + labc[g.indices.astype(np.int64)]
+    order = np.argsort(key, kind="stable")
+    key_s, w_s = key[order], g.edge_w[order]
+    boundary = np.ones(key_s.shape[0], dtype=bool)
+    boundary[1:] = key_s[1:] != key_s[:-1]
+    starts = np.nonzero(boundary)[0]
+    sums = np.add.reduceat(w_s.astype(np.float64), starts)
+    uk = key_s[starts]
+    keep = sums != 0  # match the engine's zero-drop
+    return uk[keep] // L, uniq[uk[keep] % L], sums[keep]
 
 
 def neighbor_label_weights(

@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.batch_model import build_batch_model_from_adj
+from repro_torch.core._deprecation import warn_legacy
 from repro_torch.core.buffcut import BuffCutConfig, StreamStats
 from repro_torch.core.buffer import BucketPQ
 from repro_torch.core.checkpoint import (
@@ -68,7 +69,7 @@ from repro_torch.core.metrics import internal_edge_ratio_adj, streaming_cut_incr
 from repro_torch.core.multilevel import multilevel_partition
 from repro_torch.core.prefetch import PrefetchStream, maybe_prefetch
 from repro_torch.core.rescore import RescoreState
-from repro_torch.device import preflight
+from repro_torch.device import preflight, resolve_device
 from repro_torch.graphs.csr import CSRGraph
 from repro_torch.graphs.stream import NodeStreamBase, as_node_stream
 
@@ -98,6 +99,15 @@ class PipelineConfig:
                 f"PipelineConfig.prefetch_batches must be >= 0, got {self.prefetch_batches}"
             )
 
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "PipelineConfig":
+        # the reference's configs also carry `read_ahead`, a record-queue
+        # bound nothing reads: dropped
+        return cls(**{key: val for key, val in d.items() if key != "read_ahead"})
+
 
 def _payload_bytes(arrays) -> int:
     return int(sum(a.nbytes for a in arrays if isinstance(a, np.ndarray)) + 64)
@@ -119,7 +129,9 @@ def buffcut_partition_pipelined(
     ckpt: Checkpointer | None = None,
     resume: dict | None = None,
 ) -> tuple[np.ndarray, StreamStats]:
-    """Partition a node stream into `cfg.k` blocks with the three-stage
+    """Deprecated shim: `repro_torch.api.partition` is the front door.
+
+    Partitions a node stream into `cfg.k` blocks with the three-stage
     pipeline; returns (block, stats) equal to `buffcut_partition`'s.
 
     `stats.ml_time_s` is T3's time inside the V-cycle and `stats.t3_wait_s`
@@ -128,12 +140,31 @@ def buffcut_partition_pipelined(
     `buffcut_partition`; queue and prefetch depths change no label, so a
     snapshot resumes at any depth.
     """
+    warn_legacy(
+        "buffcut_partition_pipelined(g, cfg, pipe)",
+        "partition(g, driver='buffcut-pipe', k=..., queue_depth=..., prefetch_batches=...)",
+    )
+    if cfg.ml.engine != "sparse":
+        preflight(cfg.ml.device)  # the kernel libraries are built here, not inside T3
+    return _buffcut_partition_pipelined(g, cfg, pipe, ckpt=ckpt, resume=resume)
+
+
+def _buffcut_partition_pipelined(
+    g: CSRGraph | NodeStreamBase,
+    cfg: BuffCutConfig,
+    pipe: PipelineConfig | None = None,
+    *,
+    ckpt: Checkpointer | None = None,
+    resume: dict | None = None,
+) -> tuple[np.ndarray, StreamStats]:
+    """`buffcut_partition_pipelined` without `preflight` or the deprecation
+    warning: the API enters here after it checked the device once."""
     pipe = pipe if pipe is not None else PipelineConfig()
     # the caller's device and current stream, for T3: torch keeps both per
-    # thread, and the kernel libraries are built here, not inside T3
+    # thread
     launch_ctx: tuple = ()
     if cfg.ml.engine != "sparse":
-        dev = preflight(cfg.ml.device)
+        dev = resolve_device(cfg.ml.device)
         if dev.type == "cuda":
             caller_stream = torch.cuda.current_stream(dev)
             launch_ctx = (caller_stream.device, caller_stream)

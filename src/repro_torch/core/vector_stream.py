@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.batch_model import build_batch_model_from_adj
+from repro_torch.core._deprecation import warn_legacy
 from repro_torch.core.buffcut import BuffCutConfig, StreamStats
 from repro_torch.core.buffer import VectorBuffer
 from repro_torch.core.checkpoint import (
@@ -98,6 +99,10 @@ class VectorizedConfig:
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
 
+    @classmethod
+    def from_dict(cls, d: dict) -> "VectorizedConfig":
+        return cls(**d)
+
 
 def buffcut_partition_vectorized(
     g: CSRGraph | NodeStreamBase,
@@ -108,7 +113,9 @@ def buffcut_partition_vectorized(
     ckpt: Checkpointer | None = None,
     resume: dict | None = None,
 ) -> tuple[np.ndarray, StreamStats]:
-    """Partition a node stream into `cfg.k` blocks with the dense buffer;
+    """Deprecated shim: `repro_torch.api.partition` is the front door.
+
+    Partitions a node stream into `cfg.k` blocks with the dense buffer;
     returns (block, stats).  CMS is refused (it needs per-block counts).
 
     `ckpt` snapshots at chunk boundaries, `resume` continues from such a
@@ -117,6 +124,27 @@ def buffcut_partition_vectorized(
     snapshot holds.  wave, chunk and engine change labels, so they are part
     of the snapshot's identity beside the BuffCut config.
     """
+    warn_legacy(
+        "buffcut_partition_vectorized(g, cfg, vec)",
+        "partition(g, driver='buffcut-vec', k=..., wave=..., chunk=..., vec_engine=...)",
+    )
+    if cfg.ml.engine != "sparse":
+        preflight(cfg.ml.device)
+    return _buffcut_partition_vectorized(g, cfg, vec, prefetch_batches=prefetch_batches,
+                                         ckpt=ckpt, resume=resume)
+
+
+def _buffcut_partition_vectorized(
+    g: CSRGraph | NodeStreamBase,
+    cfg: BuffCutConfig,
+    vec: VectorizedConfig | None = None,
+    *,
+    prefetch_batches: int = 0,
+    ckpt: Checkpointer | None = None,
+    resume: dict | None = None,
+) -> tuple[np.ndarray, StreamStats]:
+    """`buffcut_partition_vectorized` without `preflight` or the deprecation
+    warning: the API enters here after it checked the device once."""
     vec = vec if vec is not None else VectorizedConfig()
     if cfg.score_spec().needs_block_counts:
         raise ValueError("CMS needs per-block counts; use the sequential driver")
@@ -124,8 +152,6 @@ def buffcut_partition_vectorized(
         raise ValueError(
             f"checkpoint/resume needs the 'incremental' VectorBuffer engine, got {vec.engine!r}"
         )
-    if cfg.ml.engine != "sparse":
-        preflight(cfg.ml.device)
     # background read-ahead: record order — and so labels — unchanged
     stream = maybe_prefetch(as_node_stream(g), prefetch_batches, cfg.batch_size)
     try:

@@ -1,5 +1,6 @@
 """Graph substrate of the port: CSR graphs, generators, stream orderings,
-in-memory and disk streams, METIS and packed IO, fault injection."""
+in-memory and disk streams, METIS and packed IO, fault injection, stream
+locality (AID)."""
 from repro_torch.graphs.csr import CSRGraph, bucket_size
 from repro_torch.graphs.faults import FaultSchedule, FaultyFile, FaultyOpener
 from repro_torch.graphs.generators import (
@@ -15,6 +16,7 @@ from repro_torch.graphs.generators import (
     star_graph,
 )
 from repro_torch.graphs.io import read_metis, write_metis
+from repro_torch.graphs.locality import aid_per_node, geometric_mean, mean_aid
 from repro_torch.graphs.orderings import (
     apply_order,
     bfs_order,
@@ -52,6 +54,9 @@ __all__ = [
     "star_graph",
     "read_metis",
     "write_metis",
+    "aid_per_node",
+    "geometric_mean",
+    "mean_aid",
     "apply_order",
     "bfs_order",
     "konect_order",

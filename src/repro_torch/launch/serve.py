@@ -1,20 +1,24 @@
-"""Batched serving driver: LM decode and DLRM scoring (counterpart of
-`repro/launch/serve.py`).
+"""Batched serving driver: LM decode, DLRM scoring and partition lookups
+(counterpart of `repro/launch/serve.py`).
 
 `serve_lm` prefills a batch of prompts, then decodes greedily with the KV
 cache; on a card, sliding-window archs decode through the `swa_attention`
 CUDA kernel.  `serve_dlrm` times click-logit forwards of a DLRM batch,
 whose 26 table lookups are one `embedding_bag` kernel launch per forward.
+`serve_partition` partitions a graph through `repro_torch.api.partition`,
+promotes the result into a resident `PartitionService` and serves batched
+node->block lookups.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch h2o-danube-1.8b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch dlrm-mlperf --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch partition --device cpu
 
 The defaults mirror the reference's: for an LM the smoke config, batch 4,
 a 32-token prompt and 16 new tokens; for DLRM the smoke config and
 `smoke_batch`'s 16 rows (`--batch N` draws N rows by the same recipe,
-where the reference ignores `--batch`).  The device defaults to the card
-and raises when there is none.  Partition serving (`--arch partition`) is
-not ported yet.
+where the reference ignores `--batch`); for a partition `--graph
+gen:grid:side=64`, `--k 16`, driver buffcut and 64 batches of 4 lookups.
+The device defaults to the card and raises when there is none.
 """
 from __future__ import annotations
 
@@ -125,18 +129,64 @@ def serve_dlrm(cfg: DLRMConfig, batch: dict, iters: int = 10, *,
     return DLRMServeResult(scores=scores, batch_s=dt, forwards=iters + 1, device=str(dev))
 
 
+def serve_partition(source: str, k: int, driver: str, batch: int, queries: int, *,
+                    device: str = "cuda") -> None:
+    """Placement as a service through `repro_torch.serve`: one
+    `repro_torch.api.partition` call (its V-cycles on `device`) builds the
+    resident service; serving is batched node->block lookups through a
+    `ServeSession`.  Only the lookups are timed; the answers are then
+    checked against the partition's labels."""
+    from repro_torch.api import partition
+    from repro_torch.serve import ServeSession
+
+    res = partition(source, k=k, driver=driver, device=device)
+    service = res.into_service()
+    n = service.n
+    rng = np.random.default_rng(0)
+    reqs = [rng.integers(0, n, batch).astype(np.int64) for _ in range(queries)]
+    with ServeSession(service) as sess:
+        t0 = time.perf_counter()
+        outs = [sess.lookup(q) for q in reqs]
+        dt = time.perf_counter() - t0
+    checksum = 0
+    for q, out in zip(reqs, outs):
+        if not np.array_equal(out, res.labels[q]):
+            raise RuntimeError(
+                "served labels diverged from the partition result "
+                f"(batch of {q.shape[0]} lookups)"
+            )
+        checksum += int(out.sum())
+    total = batch * queries
+    print(
+        f"partition serve: driver={res.provenance['driver']} device={device} n={n} "
+        f"k={res.k} cut_ratio={res.cut_ratio:.4f} balance={res.balance:.3f} | "
+        f"{queries} batches x {batch} lookups in {dt*1e3:.1f}ms "
+        f"({total / max(dt, 1e-9):.0f} lookups/s, checksum={checksum})"
+    )
+
+
 def main(argv: list[str] | None = None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="h2o-danube-1.8b")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--batch", type=int, default=None,
-                    help="LM: prompts (default 4); DLRM: rows (default smoke_batch's 16)")
+                    help="LM: prompts (default 4); DLRM: rows (default smoke_batch's 16); "
+                         "partition: lookups a batch (default 4)")
     ap.add_argument("--prompt", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=16)
+    ap.add_argument("--graph", default="gen:grid:side=64",
+                    help="partition mode: graph source (path or gen: spec)")
+    ap.add_argument("--k", type=int, default=16, help="partition mode: blocks")
+    ap.add_argument("--driver", default="buffcut",
+                    help="partition mode: registry driver name")
+    ap.add_argument("--queries", type=int, default=64,
+                    help="partition mode: lookup batches to serve")
     args = ap.parse_args(argv)
     if args.arch == "partition":
-        raise NotImplementedError(
-            "--arch partition: partition serving is not ported yet (see ROADMAP.md)")
+        serve_partition(args.graph, args.k, args.driver,
+                        4 if args.batch is None else args.batch, args.queries,
+                        device=args.device)
+        return
     from repro_torch.configs import dlrm_mlperf, get_arch
 
     spec = get_arch(args.arch)

@@ -4,7 +4,9 @@ initial sweep) against their plain versions, DLRM forwards through the bag
 kernel, the device engines against the port's host `sparse` engine, the
 pipelined driver's worker thread on the caller's stream, and the
 out-of-core path on the device engine: a disk stream against the graph in
-memory, resume from a snapshot, and a restream pass with an exact cut.
+memory, resume from a snapshot, and a restream pass with an exact cut;
+the sweep kernel on fractional edge weights; the front door
+(`repro_torch.api.partition`) with BuffCut and HeiStream on the card.
 
 Every test is marked `cuda` and skips without a card.  The file imports
 neither jax nor the JAX package, so it runs on a machine that has only
@@ -380,12 +382,13 @@ def test_fennel_kernel_at_k_65536_matches_plain(w, gamma, card):
     assert torch.equal(best, want_best) and torch.equal(score, want_score)
 
 
-def _sweep_level(n, n_pad, k, n_free, hub, cap_share, seed):
+def _sweep_level(n, n_pad, k, n_free, hub, cap_share, seed, fractional=False):
     """A src-sorted level for `_initial_fennel` as numpy arrays: ~4 edges a
-    node with integer weights 0-3, node 5 a free hub of `hub` more edges,
-    `n_free` free nodes and the rest pinned, pads past n, and the cap at
-    `cap_share` of the average load plus the heaviest node (where that
-    holds less than every node, the last steps fall back)."""
+    node with integer weights 0-3 (or, `fractional`, weights drawn from
+    uniform(0.5, 2.0)), node 5 a free hub of `hub` more edges, `n_free`
+    free nodes and the rest pinned, pads past n, and the cap at `cap_share`
+    of the average load plus the heaviest node (where that holds less than
+    every node, the last steps fall back)."""
     rng = np.random.default_rng(seed)
     src = np.concatenate([np.repeat(np.arange(n), 4), np.full(hub, 5)])
     dst = rng.integers(0, n, src.size)
@@ -397,7 +400,7 @@ def _sweep_level(n, n_pad, k, n_free, hub, cap_share, seed):
     esrc, edst = np.full(e_pad, n_pad), np.full(e_pad, n_pad)
     esrc[:e], edst[:e] = src[by_src], dst[by_src]
     ew = np.zeros(e_pad)
-    ew[:e] = rng.integers(0, 4, e)
+    ew[:e] = rng.uniform(0.5, 2.0, e) if fractional else rng.integers(0, 4, e)
     node_w = np.zeros(n_pad)
     node_w[:n] = rng.integers(1, 4, n)
     pinned = np.full(n_pad, -2)
@@ -423,14 +426,10 @@ SWEEP_CASES = ([(3000, 4096, k, 1500, 3000, 1.5) for k in (2, 31, 32, 33, 64, 25
                + [(50000, 65536, 32, 600, 3000, 1.5), (50000, 65536, 257, 600, 3000, 2.0)])
 
 
-@pytest.mark.parametrize("cap_share", [1.05, 0.97])
-@pytest.mark.parametrize("n,n_pad,k,n_free,hub,gamma", SWEEP_CASES)
-def test_sweep_kernel_matches_plain_on_card(n, n_pad, k, n_free, hub, gamma, cap_share, card,
-                                            monkeypatch):
-    """`_initial_fennel` on the card (one sweep launch) against the sweep's
-    plain version on the same prepared arguments, bit for bit."""
+def _sweep_on_card_against_plain(n, n_pad, k, n_free, hub, gamma, cap_share, card,
+                                 monkeypatch, fractional=False):
     arrays, n, n_free, loads0, cap, w_c = _sweep_level(n, n_pad, k, n_free, hub, cap_share,
-                                                       seed=k + n_pad)
+                                                       seed=k + n_pad, fractional=fractional)
     seen = {}
 
     def record(*a, **kw):
@@ -449,6 +448,26 @@ def test_sweep_kernel_matches_plain_on_card(n, n_pad, k, n_free, hub, gamma, cap
     assert bool((labels[:n] >= 0).all())
     if k * cap < arrays[3].sum():
         assert float(loads.max()) > cap  # the fallback ran
+
+
+@pytest.mark.parametrize("cap_share", [1.05, 0.97])
+@pytest.mark.parametrize("n,n_pad,k,n_free,hub,gamma", SWEEP_CASES)
+def test_sweep_kernel_matches_plain_on_card(n, n_pad, k, n_free, hub, gamma, cap_share, card,
+                                            monkeypatch):
+    """`_initial_fennel` on the card (one sweep launch) against the sweep's
+    plain version on the same prepared arguments, bit for bit."""
+    _sweep_on_card_against_plain(n, n_pad, k, n_free, hub, gamma, cap_share, card, monkeypatch)
+
+
+@pytest.mark.parametrize("cap_share", [1.05, 0.97])
+@pytest.mark.parametrize("n,n_pad,k,n_free,hub,gamma", SWEEP_CASES)
+def test_sweep_kernel_matches_plain_on_fractional_weights(n, n_pad, k, n_free, hub, gamma,
+                                                          cap_share, card, monkeypatch):
+    """The same on edge weights drawn from uniform(0.5, 2.0): the kernel
+    sums a node's segment in segment order, the plain version as torch's
+    reduction does; labels and loads must still agree bit for bit."""
+    _sweep_on_card_against_plain(n, n_pad, k, n_free, hub, gamma, cap_share, card, monkeypatch,
+                                 fractional=True)
 
 
 def test_dlrm_forward_launches_one_bag_kernel_per_forward(card):
@@ -647,3 +666,33 @@ def test_restream_pass_on_card_keeps_an_exact_cut(card, order, rmat_file):
                                   initial_cut=s0.cut_weight,
                                   initial_loads=np.asarray(s0.block_loads))
     assert np.array_equal(b1, want) and info.cut_weight == winfo.cut_weight
+
+
+# ------------------------------------------------------- the front door
+
+@pytest.mark.parametrize("driver", ["buffcut", "heistream"])
+def test_api_on_card_matches_host_sparse(driver, card, monkeypatch):
+    """`repro_torch.api.partition` with the device V-cycle on R-MAT 2^16
+    (k = 32, Q = 16384, delta = 8192) equals the host `sparse` engine's
+    labels, and every V-cycle launched the sweep kernel once."""
+    from repro_torch.api import partition
+
+    g = rmat_graph(2**16, 8, seed=0)
+    kw = dict(k=32, buffer_size=16384, batch_size=8192, driver=driver)
+    engine = mlt.multilevel_partition_torch
+    vcycles = []
+
+    def counted(*a, **k_):
+        vcycles.append(1)
+        return engine(*a, **k_)
+
+    monkeypatch.setattr(mlt, "multilevel_partition_torch", counted)
+    before, hist_before = fg.sweep_launches, eh.launches
+    got = partition(g, engine="torch", **kw)
+    sweeps, hist = fg.sweep_launches - before, eh.launches - hist_before
+    want = partition(g, engine="sparse", device="cpu", **kw)
+    assert got.provenance["device"] == "cuda" and got.provenance["engine"] == "torch"
+    np.testing.assert_array_equal(got.labels, want.labels)
+    assert got.cut_weight == want.cut_weight
+    assert sweeps == len(vcycles) == got.stats.n_batches > 1
+    assert hist > 0

@@ -430,8 +430,10 @@ def test_serve_lm_defaults_to_the_card():
 def test_serve_cli(capsys):
     serve.main(["--device", "cpu", "--batch", "2", "--prompt", "8", "--tokens", "3"])
     assert "arch=h2o-danube-1.8b device=cpu batch=2" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError):
-        serve.main(["--arch", "partition", "--device", "cpu"])
+    serve.main(["--arch", "partition", "--device", "cpu", "--graph", "gen:grid:side=16",
+                "--k", "4"])  # ported: partitions, then serves 64 batches of 4 lookups
+    assert capsys.readouterr().out.startswith(
+        "partition serve: driver=buffcut device=cpu n=256 k=4 ")
     serve.main(["--arch", "dlrm-mlperf", "--device", "cpu"])  # ported: serves 16 rows
     assert capsys.readouterr().out.startswith("dlrm serve: device=cpu batch=16 ")
 

@@ -3,7 +3,9 @@
 engines equal the reference `sparse` engine's; a private copy of the
 reference JAX engine agrees too, and so does the initial Fennel sweep on
 the CPU against the reference's `_initial_fennel`; the sequential Fennel
-loop is bit-identical."""
+loop is bit-identical.  On fractional edge weights (uniform(0.5, 2.0)),
+where the engines sum in different orders, the labels of all of them
+still agree, the V-cycle's and the initial sweep's alike."""
 import importlib.util
 from pathlib import Path
 
@@ -133,11 +135,13 @@ def test_torch_engine_matches_reference_jax_engine(mode, jax_engine, monkeypatch
     assert "repro.core.multilevel_jax" not in sys.modules
 
 
-def _sweep_case(k, seed):
+def _sweep_case(k, seed, fractional=False):
     """A coarsest level for `_initial_fennel`: src-sorted padded edge arrays
     with zero-weight edges and a hub of 90 neighbours, pinned nodes, a free
     node with no neighbours, pads past n, and a cap under the average load,
-    so that the last steps find no feasible block."""
+    so that the last steps find no feasible block.  `fractional` redraws
+    the nonzero edge weights from uniform(0.5, 2.0) (a second generator, so
+    the level is otherwise the same)."""
     rng = np.random.default_rng(seed)
     n, n_pad, hub, lone = 150, 256, 7, 11
     src = np.concatenate([rng.integers(0, n, 600), np.full(90, hub)])
@@ -151,6 +155,9 @@ def _sweep_case(k, seed):
     esrc[:e], edst[:e] = src[by_src], dst[by_src]
     ew = np.zeros(e_pad)
     ew[:e] = rng.integers(0, 4, e)  # a quarter of the edges weigh 0
+    if fractional:
+        frac = np.random.default_rng(seed + 1).uniform(0.5, 2.0, e)
+        ew[:e] = np.where(ew[:e] > 0, frac, 0.0)
     node_w = np.zeros(n_pad)
     node_w[:n] = rng.integers(1, 4, n)
     pinned = np.full(n_pad, -2)
@@ -194,6 +201,100 @@ def test_initial_fennel_matches_reference(gamma, k, jax_engine, monkeypatch):
     assert loads.numpy().tobytes() == want_loads.tobytes()  # bitwise, not approx
     assert bool((labels[:n] >= 0).all()) and bool((labels[n:] == -1).all())
     assert loads.max() > cap  # some step took the least-loaded fallback
+
+
+def _fractional(g, seed):
+    """`g` (a reference CSRGraph) with its edge weights redrawn from a
+    seeded uniform(0.5, 2.0), symmetric per undirected edge."""
+    src = np.repeat(np.arange(g.n), np.diff(g.indptr))
+    dst = g.indices.astype(np.int64)
+    edges = np.stack([src, dst], 1)[src < dst]
+    w = np.random.default_rng(seed).uniform(0.5, 2.0, edges.shape[0])
+    return rg.CSRGraph.from_edges(g.n, edges, w)
+
+
+def _fractional_batch_model(graph, seed):
+    """The batch model of nodes [2n/5, 4n/5) of a fractional-weight mesh or
+    R-MAT graph, after the first 2n/5 nodes took random blocks."""
+    base, k = {"mesh": (lambda: rg.grid_mesh_graph(40), 4),
+               "rmat": (lambda: rg.rmat_graph(1024, 8, seed=3), 8)}[graph]
+    g = _fractional(base(), seed)
+    a, b = 2 * g.n // 5, 4 * g.n // 5
+    block = np.full(g.n, -1, dtype=np.int64)
+    block[:a] = np.random.default_rng(seed).integers(0, k, a)
+    loads = np.bincount(block[:a], weights=g.node_w[:a], minlength=k).astype(np.float64)
+    model = ref_build_batch_model(g, np.arange(a, b), block, k)
+    return model.graph, model.pinned_block, k, loads
+
+
+@pytest.mark.parametrize("seed", [1, 2])
+@pytest.mark.parametrize("mode", ["dense", "sort", "ell"])
+@pytest.mark.parametrize("graph", ["mesh", "rmat"])
+def test_fractional_weights_torch_engine_matches_reference(graph, mode, seed, jax_engine,
+                                                           monkeypatch):
+    """Edge weights from uniform(0.5, 2.0): the port's `torch` engine (on
+    the CPU, in every forced aggregation mode) gives the labels of the
+    reference's jax engine (its private copy, in the same mode) and of the
+    reference's `sparse` engine.  The three sum in different orders (torch's
+    reductions, XLA's, numpy's sequential adds); the labels agree."""
+    g, pinned, k, loads = _fractional_batch_model(graph, seed)
+    assert not np.array_equal(g.edge_w, np.round(g.edge_w))
+    ref_p, p = _params(g, k, 0.05)
+    want_sparse = ref_multilevel(g, pinned, ref_p, loads, RefConfig(engine="sparse"))
+    monkeypatch.setattr(jax_engine, "MODE_OVERRIDE", mode)
+    monkeypatch.setattr(mlt, "MODE_OVERRIDE", mode)
+    want_jax = jax_engine.multilevel_partition_jax(g, pinned, ref_p, loads,
+                                                   RefConfig(engine="jax"))
+    got = tml.multilevel_partition(_port(g), pinned, p, loads,
+                                   tml.MultilevelConfig(engine="torch", device="cpu"))
+    np.testing.assert_array_equal(got, want_jax)
+    np.testing.assert_array_equal(got, want_sparse)
+
+
+@pytest.mark.parametrize("engine", ["sparse", "ell"])
+@pytest.mark.parametrize("graph", ["mesh", "rmat"])
+def test_fractional_weights_host_engines_match_reference(graph, engine):
+    g, pinned, k, loads = _fractional_batch_model(graph, 1)
+    ref_p, p = _params(g, k, 0.05)
+    want = ref_multilevel(g, pinned, ref_p, loads, RefConfig(engine="sparse"))
+    got = tml.multilevel_partition(_port(g), pinned, p, loads,
+                                   tml.MultilevelConfig(engine=engine, device="cpu"))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("k", [2, 32, 40])
+@pytest.mark.parametrize("gamma", [1.5, 3.0])
+def test_fractional_weights_initial_fennel_matches_reference(gamma, k, jax_engine):
+    """`_initial_fennel` alone on a level with weights from uniform(0.5,
+    2.0): the port's plain sweep against the jax engine copy's fori_loop
+    and against the reference `sparse` engine's sequential sweep
+    (`fennel_gain_sequential`, left-to-right adds in segment order, the
+    order of the sweep kernel): labels and loads bit for bit."""
+    import jax.numpy as jnp
+
+    arrays, n, n_free, loads0, cap, w_c = _sweep_case(k, seed=k, fractional=True)
+    esrc, edst, ew, node_w, pinned = arrays
+    assert not np.array_equal(ew, np.round(ew))
+    alpha = 0.4
+    with jax_engine.enable_x64():
+        want = jax_engine._initial_fennel(*map(jnp.asarray, arrays), n, jnp.asarray(loads0),
+                                          alpha, gamma, cap, w_c=w_c)
+        want_labels, want_loads = (np.asarray(a) for a in want)
+    labels, loads = mlt._initial_fennel(*map(torch.from_numpy, arrays), n, n_free,
+                                        torch.from_numpy(loads0), alpha, gamma, cap, w_c=w_c)
+    np.testing.assert_array_equal(labels.numpy(), want_labels)
+    assert loads.numpy().tobytes() == want_loads.tobytes()
+    # the reference sparse engine's sweep over the same level in CSR form
+    e = int((esrc < n).sum())
+    indptr = np.searchsorted(esrc[:e], np.arange(n + 1))
+    free = np.nonzero(pinned[:n] == -1)[0]
+    order = free[np.lexsort((free, -node_w[free]))]
+    seq_labels = np.where(pinned[:n] >= 0, pinned[:n], -1).astype(np.int64)
+    seq_loads = loads0.copy()
+    ref_fennel_sequential(indptr, edst[:e], ew[:e], node_w[:n], order, seq_labels, seq_loads,
+                          alpha=alpha, gamma=gamma, cap=cap, k=k)
+    np.testing.assert_array_equal(labels.numpy()[:n], seq_labels)
+    assert loads.numpy().tobytes() == seq_loads.tobytes()
 
 
 @pytest.mark.parametrize("gamma", [1.5, 2.0, 3.0])

@@ -568,3 +568,134 @@ def test_run_workload_matches_reference(engine, grids, tmp_path):
     _assert_same(svc, ref)
     with pytest.raises(ValueError, match="unknown workload verb"):
         run_workload(svc, [("bogus", None)])
+
+
+# ---------------------------------------------------------------------------
+# the front door: into_service, capability flags, the serve CLIs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("engine", ["sparse", "torch"])
+def test_into_service_roundtrip_and_exactness(engine, grids):
+    from repro.api import partition as ref_partition
+    from repro_torch.api import partition
+
+    g, ref_g = grids
+    kw = dict(driver="buffcut", k=4, buffer_size=128, batch_size=32)
+    res = partition(g, engine=engine, device="cpu", **kw)
+    svc = res.into_service(buffer_cap=32)
+    ref_svc = ref_partition(ref_g, engine="sparse", **kw).into_service(buffer_cap=32)
+    assert svc.buffer_cap == 32
+    assert svc.cut_weight == res.cut_weight == ref_svc.cut_weight
+    assert svc.cut_weight == edge_cut(g, res.labels)
+    for s_ in (svc, ref_svc):
+        s_.update(insert_edges=[(0, g.n - 1)])
+        s_.refine()
+    assert svc.cut_weight == edge_cut(svc.export_graph(), svc.labels) == ref_svc.cut_weight
+    np.testing.assert_array_equal(svc.labels, ref_svc.labels)
+
+
+def test_into_service_capability_gate(grids):
+    from repro_torch.api import partition
+
+    res = partition(grids[0], driver="fennel", k=4, device="cpu")
+    with pytest.raises(ValueError, match="dynamic-capable drivers"):
+        res.into_service()
+
+
+def test_into_service_reresolves_from_provenance():
+    from repro_torch.api import PartitionResult, partition
+
+    res = partition("gen:grid:side=12", driver="buffcut", k=4, device="cpu")
+    res2 = PartitionResult.from_json(res.to_json())
+    assert res2.graph is None
+    svc = res2.into_service()
+    assert svc.n == 144
+    assert svc.cut_weight == edge_cut(svc.export_graph(), svc.labels)
+    del res2.provenance["source"]["origin"]
+    with pytest.raises(ValueError, match="pass source= explicitly"):
+        res2.into_service()
+    assert res2.into_service(source="gen:grid:side=12").n == 144
+
+
+def test_registry_capability_flags():
+    from repro.api import get_partitioner as ref_get
+    from repro.api import list_partitioners as ref_list
+    from repro_torch.api import get_partitioner
+
+    caps = get_partitioner("buffcut").capabilities()
+    assert caps == {"disk_stream": True, "checkpoint": True, "shard": True, "dynamic": True}
+    assert get_partitioner("fennel").capabilities()["dynamic"] is False
+    assert "supports_dynamic=True" in repr(get_partitioner("buffcut"))
+    for name in ref_list():
+        assert get_partitioner(name).capabilities() == ref_get(name).capabilities()
+        assert get_partitioner(name).aliases == ref_get(name).aliases
+
+
+def test_cli_serve_churn(tmp_path):
+    import json
+
+    from repro.api.cli import main as ref_main
+    from repro_torch.api.cli import main
+
+    args = ["serve", "gen:grid:side=16", "-k", "4",
+            "--workload", "gen:churn:updates=8,ops=6,node_adds=2,refine_every=4,seed=1"]
+    out, ref_out = tmp_path / "serve.json", tmp_path / "ref.json"
+    assert main([*args, "--device", "cpu", "--json", str(out)]) == 0
+    assert ref_main([*args, "--json", str(ref_out)]) == 0
+    report, want = json.loads(out.read_text()), json.loads(ref_out.read_text())
+    assert report["exact"]["match"] is True
+    assert report["workload"]["update"]["count"] == 8
+    assert report["workload"]["lookup"]["p99_ms"] >= 0.0
+    assert report["provenance"]["driver"] == "buffcut"
+    assert report["session"]["requests"] == report["provenance"]["ops"]
+    assert report["exact"] == want["exact"]
+    assert report["provenance"]["initial_cut"] == want["provenance"]["initial_cut"]
+    assert report["workload"]["lookup_checksum"] == want["workload"]["lookup_checksum"]
+
+
+def test_cli_serve_delta_file(tmp_path):
+    from repro_torch.api.cli import main
+
+    p = tmp_path / "d.txt"
+    p.write_text("add 0 37\nadd 1 38\ndel 0 1\nlookup 0 1 2 3\nrefine\n")
+    rc = main(["serve", "gen:grid:side=8", "-k", "2", "--device", "cpu",
+               "--delta-file", str(p), "--json", str(tmp_path / "r.json")])
+    assert rc == 0
+
+
+def test_cli_serve_rejects_incapable_driver(capsys):
+    from repro_torch.api.cli import main
+
+    rc = main(["serve", "gen:grid:side=8", "-k", "2", "--driver", "ldg", "--device", "cpu"])
+    assert rc == 1
+    assert "dynamic-capable drivers" in capsys.readouterr().err
+
+
+def test_cli_serve_without_a_card_fails(capsys, monkeypatch):
+    import torch
+
+    import repro_torch.api as api_mod
+    from repro_torch.api.cli import main
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the no-card error path cannot be shown")
+    resolved = []
+    real_resolve = api_mod.resolve_source
+    monkeypatch.setattr(api_mod, "resolve_source",
+                        lambda s: resolved.append(s) or real_resolve(s))
+    assert main(["serve", "gen:grid:side=8", "-k", "2"]) == 1
+    # refused before the source is read
+    assert resolved == [] and "no CUDA device" in capsys.readouterr().err
+
+
+def test_serve_arch_partition_cli(capsys):
+    """`python -m repro_torch.launch.serve --arch partition`: one API call,
+    the result promoted into a service, lookups checked against it."""
+    from repro_torch.launch import serve
+
+    serve.main(["--arch", "partition", "--device", "cpu", "--graph", "gen:grid:side=16",
+                "--k", "4", "--batch", "8", "--queries", "5"])
+    out = capsys.readouterr().out
+    assert out.startswith("partition serve: driver=buffcut device=cpu n=256 k=4 ")
+    assert "5 batches x 8 lookups" in out

@@ -277,6 +277,69 @@ def test_reconcile_restream_matches_reference(base_graph, ref_graph):
     assert rinfo.cut_weight == edge_cut(base_graph, refined) == winfo.cut_weight
 
 
+# ------------------------------------------------------- through the API
+
+
+@pytest.mark.parametrize("engine", ["sparse", "torch"])
+@pytest.mark.parametrize("restream_passes", [0, 1])
+def test_api_sharded_route_matches_reference(restream_passes, engine, base_graph, ref_graph):
+    """`partition(workers=W)` routes through the shard pool, then the
+    reconciliation restream: labels, stats and the sharded provenance equal
+    the reference API's."""
+    from repro.api import partition as ref_partition
+    from repro_torch.api import partition
+
+    kw = dict(workers=2, load_sync_every=2, restream_passes=restream_passes,
+              restream_order="priority")
+    res = partition(base_graph, _cfg(engine), **kw)
+    want = ref_partition(ref_graph, _ref_cfg(), **kw)
+    np.testing.assert_array_equal(res.labels, want.labels)
+
+    def scheduled(d: dict) -> dict:
+        # the API's workers read ahead (prefetch_batches=2): their peak
+        # residency depends on when each pump thread staged its blocks
+        return {k: v for k, v in _untimed(d).items() if k != "peak_resident_bytes"}
+
+    assert scheduled(res.stats.to_dict()) == scheduled(want.stats.to_dict())
+    got = _untimed_info(res.provenance["sharded"])
+    wanted = _untimed_info(want.provenance["sharded"])
+    for extra in ("split_bytes", "merge_bytes"):
+        got.pop(extra, None)
+    for info in (got, wanted):
+        info["per_worker"] = [scheduled(p) for p in info["per_worker"]]
+    assert got == wanted
+
+
+def test_api_rejects_shard_incapable_driver(base_graph):
+    from repro_torch.api import partition
+
+    with pytest.raises(ValueError, match="does not support sharded"):
+        partition(base_graph, k=4, driver="fennel", workers=2, device="cpu")
+
+
+def test_api_process_backend_refuses_torch_before_forking(base_graph, monkeypatch):
+    from repro_torch.api import partition
+
+    def no_fork(*a, **kw):
+        raise AssertionError("forked")
+
+    monkeypatch.setattr(multiprocessing, "get_context", no_fork)
+    with pytest.raises(ValueError, match="backend='process'"):
+        partition(base_graph, _cfg("torch"), workers=2, shard_backend="process")
+
+
+def test_config_serialization_round_trip():
+    from repro_torch.api import DriverConfig
+
+    dc = DriverConfig.create(
+        k=4, workers=4, load_sync_every=3, shard_backend="process"
+    )
+    rt = DriverConfig.from_json(dc.to_json())
+    assert (rt.workers, rt.load_sync_every, rt.shard_backend) == (4, 3, "process")
+    with pytest.raises(ValueError, match="shard_backend"):
+        DriverConfig.create(k=4, shard_backend="fork")
+
+
 # ------------------------------------------------ where the V-cycles run
 
 

@@ -87,6 +87,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               held against its plain version (the eager step loop) bit for
               bit, labels and loads, and timed: the call (two clones and the
               launch), the `_initial_fennel` stage and the plain version once;
+              then its stamped copy (`fennel_gain._sweep_stamped`, clock64()
+              counters, equal labels and loads required): the decision
+              warp's cycles a step by branch, the share of steps on each
+              summation path, and the chain alone iterated, beside the
+              chain floor of the SWEEP_STEP_CYCLES model;
 14. pipe      `buffcut_partition_pipelined` at phase 5's full width with
               PipelineConfig() (queue 4, prefetch 2): labels bit-equal to
               phase 5's (cut and balance too), histogram launches and one
@@ -196,13 +201,16 @@ rests on them, and the rows of such a run are logged as not measured.
 
 `--kernels-only` builds and runs only the timings of the fennel_gain kernel
 (phase 10's) and of the initial sweep on its path (phase 6's stage split,
-then phase 13's times where the tree has the sweep kernel; an earlier tree's
-eager sweep is timed as its `_initial_fennel` stage), the swa_attention
-wrapper's host time per call at the serve shape and decode_32k, and, for
-this tree, fennel_gain at k = 65,536 and swa_attention's general paths
-timed beside their bounds; it prints no result line; with `--src` it takes repro_torch from another tree, so that an
-earlier commit (unpacked with `git archive` into a directory `.gitignore`
-lists) is timed by the same code on the same card.
+then phase 13's times and counters), the swa_attention wrapper's host time
+per call at the serve shape and decode_32k, fennel_gain at k = 65,536 and
+swa_attention's general paths timed beside their bounds; it prints no
+result line.  With `--src OTHER/src` (an earlier commit unpacked with `git
+archive` into a directory `.gitignore` lists) it also builds OTHER's
+`repro_torch/kernels/csrc/fennel_gain.cu` with this tree's nvcc flags,
+holds its sweep's labels and loads equal to this tree's on phase 13's
+level, and times the two sweep kernels in turns on the same inputs
+(other, this, this, other), then phase 6's batch V-cycle and its
+`_initial_fennel` stage in turns with the sweep routed to each.
 
 The port has no host fallback: an error of a device engine fails the run.
 
@@ -282,11 +290,18 @@ FENNEL_GAMMAS = (1.25, 1.5, 2.0, 2.5, 3.0, 4.0)
 FENNEL_ALPHA, FENNEL_CAP = 0.05, 90.0
 # (B, W, k): the public op past shared memory (the row in device memory)
 FENNEL_LARGE_K = (4096, 16, 65536)
-# the sweep's dependent chain a step, a floor: one on-chip read of a
-# neighbour's label written a step earlier, then the five shuffle rounds of
-# the argmax over k = 32 blocks, each a dependent round trip of ~30 SM
-# cycles (the update of one load overlaps the next step's reads)
-SWEEP_STEP_CYCLES = 6 * 30
+# the sweep's dependent chain a step (k <= 32), a floor: each lane holds
+# its block's two scores for the step, for whether the block took the step
+# before or not, so a step waits only on the step before's choice, through
+# the compare of the lane with it and the select of a key's high word
+# (ISETP, SEL), the lane packed below the key's top 27 bits (LOP3), two
+# independent reduxes of that word (REDUX.MAX and the move of its uniform
+# result; the second issues behind the first) and the lane read back (LOP3,
+# IADD).  Cycles of each link on an H100 SXM, read as dependent chains of
+# those instructions in a loop (an integer op ~9); the stamped sweep
+# iterates the chain itself beside it ("chain alone")
+SWEEP_CHAIN_SELECT, SWEEP_CHAIN_REDUX, SWEEP_CHAIN_INT = 18, 46, 9
+SWEEP_STEP_CYCLES = SWEEP_CHAIN_SELECT + SWEEP_CHAIN_INT + SWEEP_CHAIN_REDUX + 2 * SWEEP_CHAIN_INT
 # float64 rate of one H100 SXM outside the tensor cores (NVIDIA data sheet)
 FP64_OPS_PER_S = 34e12
 
@@ -1417,13 +1432,127 @@ def sweep_stage_ms(coarsest, reps: int = 5) -> float:
     return times[len(times) // 2]
 
 
-def sweep_time(coarsest, plain: bool, profile: bool) -> dict:
+def other_sweep(src: Path):
+    """`fennel_sweep` as another tree would run it: that tree's
+    `fennel_gain.cu` (`src` is the tree's `src`), built with this tree's
+    nvcc flags into build/other_sweep/ and launched as this tree's wrapper
+    launches its own (the C entry point is the same)."""
+    import ctypes
+    import hashlib
+
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import fennel_gain as fg
+
+    cu = Path(src) / "repro_torch" / "kernels" / "csrc" / "fennel_gain.cu"
+    digest = hashlib.sha256(cu.read_bytes()).hexdigest()[:16]
+    out = ROOT / "build" / "other_sweep" / f"fennel_gain-{digest}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    if not out.exists():
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out), str(cu)],
+                       check=True, capture_output=True, text=True, timeout=600)
+    fn = ctypes.CDLL(str(out)).fennel_sweep_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_double, ctypes.c_double,
+        ctypes.c_double, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    log(f"[sweep] other tree's kernel: {cu} -> {out.name}")
+
+    def sweep(esrc, edst, ew, node_w, order, indptr, labels0, loads0, n_free, *, alpha, gamma,
+              cap, w_c):
+        labels, loads, err = fg._launch_sweep(fn, edst, ew, node_w, order, indptr, labels0,
+                                              loads0, n_free, alpha, gamma, cap)
+        check(err == 0, f"the other tree's sweep launch failed with CUDA error {err}")
+        return labels, loads
+
+    return sweep
+
+
+def sweep_turns(other, coarsest) -> None:
+    """Phase 6's batch V-cycle (median of 3 after a warm-up) and its
+    `_initial_fennel` stage, timed in turns (other, this, this, other) with
+    `fennel_sweep` routed to `other` (an `other_sweep`) on its turns; the
+    V-cycle's labels must be equal on both."""
+    import numpy as np
+    import torch
+
+    import repro_torch.core.multilevel_torch as mlt
+    from repro_torch.core.multilevel import multilevel_partition
+    from repro_torch.graphs import grid_mesh_graph
+
+    side = 1024
+    g = grid_mesh_graph(side)
+    cfg = full_width_config()
+    lo = (side // 2) * side
+    model, p, loads = batch_model_case(g, lo, lo + cfg.batch_size, cfg.k, seed=3)
+    this = mlt.fennel_sweep
+
+    def vcycle():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        labels = multilevel_partition(model.graph, model.pinned_block, p, loads, cfg.ml)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, np.asarray(labels)
+
+    turns = []
+    try:
+        for name, fn in (("other", other), ("this", this), ("this", this), ("other", other)):
+            mlt.fennel_sweep = fn
+            vcycle()
+            runs = [vcycle() for _ in range(3)]
+            turns.append((name, sorted(ms for ms, _ in runs)[1], sweep_stage_ms(coarsest),
+                          runs[0][1]))
+    finally:
+        mlt.fennel_sweep = this
+    check(all(np.array_equal(t[3], turns[0][3]) for t in turns),
+          "the V-cycle's labels differ between the two trees' sweep kernels")
+    log("[sweep] phase 6's batch V-cycle and the _initial_fennel stage in turns, labels equal: "
+        + ", ".join(f"{name} {ms:.2f} ms / {stage:.4f} ms" for name, ms, stage, _ in turns))
+
+
+def sweep_stamps(sa, skw, labels, loads, clock: float) -> dict:
+    """The stamped copy of the sweep kernel on the sweep's arguments: its
+    labels and loads must equal the kernel's; logs the decision warp's
+    cycles a step by branch, the steps on each summation path, and the
+    chain alone against the SWEEP_STEP_CYCLES model."""
+    import torch
+
+    from repro_torch.kernels import fennel_gain as fg
+
+    got_labels, got_loads, st = fg._sweep_stamped(
+        *sa, alpha=skw["alpha"], gamma=skw["gamma"], cap=skw["cap"])
+    check(torch.equal(got_labels, labels) and torch.equal(got_loads, loads),
+          "the stamped sweep differs from the sweep kernel")
+    n = st["steps"]
+    cyc = {key[:-7]: st[key] / n for key in fg.STAMP_KEYS if key.endswith("_cycles")
+           and key != "chain_cycles"}
+    chain = st["chain_cycles"] / st["chain_reps"]
+    fast = n - st["long_steps"] - st["direct_steps"] - st["ordered_steps"] - st["exact_steps"]
+    share = {"exact, with the step before's node": st["exact_steps"], "no patch": fast,
+             "ordered, fractional": st["ordered_steps"], "long (9-1024)": st["long_steps"],
+             "direct (>1024)": st["direct_steps"]}
+    log(f"[sweep] stamped copy (labels and loads equal to the kernel's): cycles a step "
+        f"{', '.join(f'{k_} {v:.1f}' for k_, v in cyc.items())}; steps {n}: settled on full "
+        f"keys {st['settle_steps']}, no feasible block {st['fallback_steps']}; waits on the "
+        f"stager {st['waits']}")
+    log(f"[sweep] summation paths: "
+        + ", ".join(f"{k_} {v} ({100 * v / n:.2f}%)" for k_, v in share.items()))
+    log(f"[sweep] chain alone {chain:.1f} cycles a step ({chain / clock * 1e9:.1f} ns at "
+        f"{clock / 1e9:.3f} GHz); model SWEEP_STEP_CYCLES = {SWEEP_CHAIN_SELECT} + "
+        f"{SWEEP_CHAIN_INT} + {SWEEP_CHAIN_REDUX} + 2 x {SWEEP_CHAIN_INT} = {SWEEP_STEP_CYCLES} cycles "
+        f"({SWEEP_STEP_CYCLES / clock * 1e9:.1f} ns), {n * SWEEP_STEP_CYCLES / clock * 1e3:.4f} "
+        f"ms for {n} steps")
+    return {**st, "chain_cycles_a_step": chain}
+
+
+def sweep_time(coarsest, plain: bool, profile: bool, other=None) -> dict:
     """The sweep on phase 6's coarsest level: held against its plain
     version (when `plain`), and timed — the call (`device_ms`: two clones
     of labels and loads, and the launch), with `profile` the kernel alone
     (its profiler rows; without, or when no trace is complete, the kernel's
     time is the call's), and the
-    whole `_initial_fennel` stage; its bounds."""
+    whole `_initial_fennel` stage; its bounds; its stamped copy's counters.
+    `other` (an `other_sweep`) is held equal and timed in turns with this
+    tree's kernel."""
     import torch
 
     import repro_torch.core.multilevel_torch as mlt
@@ -1463,6 +1592,18 @@ def sweep_time(coarsest, plain: bool, profile: bool) -> dict:
         return fg.fennel_sweep(*sa, **skw)
 
     call_ms = device_ms(call, samples=3, reps=3)
+    if other is not None:
+
+        def other_call():
+            return other(*sa, **skw)
+
+        o_labels, o_loads = other_call()
+        check(torch.equal(o_labels, labels) and torch.equal(o_loads, loads),
+              "the other tree's sweep differs from this tree's on the coarsest level")
+        turns = [("other", other_call), ("this", call), ("this", call), ("other", other_call)]
+        times = [(name, device_ms(fn, samples=3, reps=3)) for name, fn in turns]
+        log("[sweep] in turns on one card, labels and loads equal: " + ", ".join(
+            f"{name} {ms:.4f} ms ({ms / n_free * 1e6:.1f} ns a step)" for name, ms in times))
     kernel = call_ms
     rows = device_rows(call, 3, want="fennel_sweep", expect=3) if profile else None
     if rows is not None:
@@ -1484,6 +1625,7 @@ def sweep_time(coarsest, plain: bool, profile: bool) -> dict:
         f"_initial_fennel stage {stage:.4f} ms; bound {bnd * 1e3:.3f} us ({by}), dependent "
         f"chain {chain:.4f} ms ({SWEEP_STEP_CYCLES} cycles a step at {clock / 1e9:.3f} GHz); "
         f"kernel from {'profiler rows' if rows else 'the call'}")
+    sweep_stamps(sa, skw, labels, loads, clock)
     return {**out, "ms": kernel, "bound_ms": bnd, "bound_by": by}
 
 
@@ -2508,14 +2650,12 @@ def main(argv: list[str] | None = None) -> int:
                          "(phase 6's stage split, phase 13's times) and the swa_attention "
                          "wrapper's host time; prints no result line")
     ap.add_argument("--src", type=Path, default=None,
-                    help="import repro_torch from this directory instead of ./src (another "
-                         "tree's kernels under the same measurements)")
+                    help="with --kernels-only: another tree's src; its fennel_gain.cu sweep is "
+                         "built beside this tree's and the two are timed in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
         return 1
-    if args.src is not None:
-        sys.path.insert(0, str(args.src.resolve()))
     import repro_torch  # noqa: F401  (fails in a directory without the port)
 
     # the phases call the legacy driver functions beside the API on purpose
@@ -2537,19 +2677,15 @@ def main(argv: list[str] | None = None) -> int:
     log(f"[env] repro_torch from {Path(repro_torch.__file__).parent}")
     timed("build", phase_build)
     if args.kernels_only:
-        import repro_torch.core.multilevel_torch as mlt
-
+        other = other_sweep(args.src) if args.src is not None else None
         fennel_time(*FENNEL_SHAPES[0], FENNEL_GAMMAS[1], profile=True)
         coarsest = timed("profile", phase_profile, 1024)
-        if hasattr(mlt, "fennel_sweep"):
-            sweep_time(coarsest, plain=False, profile=True)
-        else:  # an earlier tree: the eager step loop is the stage
-            log(f"[sweep] no sweep kernel in this tree: the _initial_fennel stage "
-                f"{sweep_stage_ms(coarsest, reps=1):.4f} ms")
+        sweep_time(coarsest, plain=False, profile=True, other=other)
+        if other is not None:
+            sweep_turns(other, coarsest)
         swa_host()
-        if args.src is None:  # this tree's general paths (an earlier one may refuse them)
-            fennel_large_k()
-            swa_general_time()
+        fennel_large_k()
+        swa_general_time()
         log(f"[env] kernels only: total {time.perf_counter() - t_start:.1f} s")
         print(gpu_name_and_limit())
         return 0

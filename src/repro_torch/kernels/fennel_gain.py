@@ -34,12 +34,18 @@ applied to the free nodes one after another in `order`, each step seeing
 the labels and loads of the steps before it.  It replaces the reference's
 `repro/core/multilevel_jax.py::_initial_fennel`, a `jax.lax.fori_loop` (not
 a Pallas kernel), with the one-block kernel behind `fennel_sweep_launch`:
-one launch instead of ~20 eager launches per step.  Its plain version,
-`fennel_sweep_plain`, is that eager step loop.  The kernel sums each
-segment in segment order and the plain version in torch's reduction order,
-so the two agree bit for bit where the sums are exact (integer weights, as
-BuffCut's graphs have; the V-cycle's parity with the host engines holds on
-those only).  `sweep_launches` counts its launches.
+one launch instead of ~20 eager launches per step.  For k <= 32 the kernel
+forms each step's scores one step ahead, for both outcomes of the step
+before, so that a step's dependent chain is a select and one pair of warp
+reductions (`csrc/fennel_gain.cu`).  Its plain version,
+`fennel_sweep_plain`, is that eager step loop.  The kernel sums a segment
+in segment order unless its sum is exact in any order (integer weights
+summing below 2^53), and the plain version in torch's reduction order, so
+the two agree bit for bit where the sums are exact (integer weights, as
+BuffCut's graphs have; the V-cycle's parity with the host engines holds
+on those only).
+`sweep_launches` counts its launches; `_sweep_stamped` runs a copy of the
+kernel with cycle counters for `chip_smoke.py` and is not counted.
 
 Each wrapper takes its plain version only for tensors on the CPU; for
 CUDA tensors it launches its kernel or raises.
@@ -205,6 +211,7 @@ def _check(nbr_blk: torch.Tensor, nbr_w: torch.Tensor, loads: torch.Tensor,
 
 _LAUNCH = None
 _SWEEP = None
+_STAMPED = None
 
 
 def _launcher():
@@ -231,6 +238,19 @@ def _sweep_launcher():
         fn.restype = ctypes.c_int
         _SWEEP = fn
     return _SWEEP
+
+
+def _stamped_launcher():
+    """The stamped sweep's C entry point, loaded once (`_sweep_stamped`)."""
+    global _STAMPED
+    if _STAMPED is None:
+        fn = _build.load("fennel_gain").fennel_sweep_stamped_launch
+        fn.argtypes = [ctypes.c_void_p] * 8 + [
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_double,
+            ctypes.c_double, ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _STAMPED = fn
+    return _STAMPED
 
 
 def fennel_choose_batch(nbr_blk: torch.Tensor, nbr_w: torch.Tensor, loads: torch.Tensor,
@@ -327,6 +347,64 @@ def _check_sweep(esrc, edst, ew, node_w, order, indptr, labels, loads, n_free: i
         raise ValueError(f"tensors on several devices: {sorted(map(str, devices))}")
 
 
+# what `_sweep_stamped` returns, in the order of the kernel's counters:
+# the decision warp's cycles by branch of a step (the main block, which
+# decides a step and prepares the next; the settle on full keys; the
+# ordered sums of the next step; the tail: label store, releases, waits),
+# before the loop and in all; steps; steps settled on full keys (a tie in
+# the keys' top 27 bits, or no score above -inf) and steps with no
+# feasible block; prepared steps by summation path (segments past kSlots =
+# 8 entries and past kDirect = 1024, fractional ones that hold the node of
+# the step before, short exact ones that hold it and took its weight as
+# one add; the rest need no patch); the chain alone, iterated; the
+# decision warp's waits on the stager (cycles, waits); the stager's cycles
+# other than its waits for room, and its batches of 32 steps
+STAMP_KEYS = ("main_cycles", "settle_cycles", "ordered_cycles", "tail_cycles",
+              "prologue_cycles", "total_cycles", "steps", "settle_steps", "fallback_steps",
+              "long_steps", "direct_steps", "ordered_steps", "exact_steps", "chain_cycles",
+              "chain_reps", "wait_cycles", "waits", "stage_cycles", "stage_batches")
+
+
+def _sweep_stamped(esrc, edst, ew, node_w, order, indptr, labels0, loads0, n_free: int, *,
+                   alpha: float, gamma: float, cap: float) -> tuple:
+    """The sweep kernel with clock64() counters, on CUDA tensors of the
+    main path's route only (k <= 32, labels in shared memory, gamma 1.5):
+    (labels, loads, {STAMP_KEYS: int}).  The counters change the kernel's
+    schedule, so its time is not the kernel's; it is not counted in
+    `sweep_launches`."""
+    _check_sweep(esrc, edst, ew, node_w, order, indptr, labels0, loads0, n_free)
+    device = node_w.device
+    if device.type != "cuda":
+        raise ValueError(f"_sweep_stamped runs on cuda tensors only, got {device}")
+    stamps = torch.zeros((len(STAMP_KEYS),), dtype=torch.int64, device=device)
+    labels, loads, err = _launch_sweep(_stamped_launcher(), edst, ew, node_w, order, indptr,
+                                       labels0, loads0, n_free, alpha, gamma, cap,
+                                       stamps.data_ptr())
+    if err == _ERR_SHAPE:
+        raise ValueError("_sweep_stamped takes k <= 32, labels that fit in shared memory and "
+                         "gamma = 1.5 only")
+    if err != 0:
+        raise RuntimeError(f"fennel_sweep_stamped launch failed with CUDA error {err}")
+    return labels, loads, dict(zip(STAMP_KEYS, stamps.tolist()))
+
+
+def _launch_sweep(launch, edst, ew, node_w, order, indptr, labels0, loads0, n_free, alpha,
+                  gamma, cap, *extra):
+    """One launch of a sweep entry point on CUDA tensors, into clones of
+    labels0 and loads0: (labels, loads, the entry point's error code)."""
+    device = node_w.device
+    labels, loads = labels0.clone(), loads0.clone()
+    k = loads.shape[0]
+    scratch = torch.empty((3 * k,), dtype=torch.float64, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = launch(edst.data_ptr(), ew.data_ptr(), node_w.data_ptr(), order.data_ptr(),
+                     indptr.data_ptr(), labels.data_ptr(), loads.data_ptr(), scratch.data_ptr(),
+                     node_w.shape[0], n_free, k, float(alpha) * float(gamma),
+                     float(gamma) - 1.0, float(cap), stream, *extra)
+    return labels, loads, err
+
+
 def fennel_sweep(esrc, edst, ew, node_w, order, indptr, labels0, loads0, n_free: int, *,
                  alpha: float, gamma: float, cap: float, w_c: int):
     """The sequential weighted Fennel sweep over the first `n_free` nodes of
@@ -344,23 +422,16 @@ def fennel_sweep(esrc, edst, ew, node_w, order, indptr, labels0, loads0, n_free:
                                   n_free, alpha=alpha, gamma=gamma, cap=cap, w_c=w_c)
     if device.type != "cuda":
         raise ValueError(f"fennel_sweep runs on cpu or cuda tensors, got {device}")
-    labels, loads = labels0.clone(), loads0.clone()
     if n_free <= 0:
-        return labels, loads
-    k = loads.shape[0]
-    scratch = torch.empty((3 * k,), dtype=torch.float64, device=device)
-    launch = _sweep_launcher()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = launch(edst.data_ptr(), ew.data_ptr(), node_w.data_ptr(), order.data_ptr(),
-                     indptr.data_ptr(), labels.data_ptr(), loads.data_ptr(), scratch.data_ptr(),
-                     node_w.shape[0], n_free, k, float(alpha) * float(gamma),
-                     float(gamma) - 1.0, float(cap), stream)
+        return labels0.clone(), loads0.clone()
+    k = loads0.shape[0]
+    labels, loads, err = _launch_sweep(_sweep_launcher(), edst, ew, node_w, order, indptr,
+                                       labels0, loads0, n_free, alpha, gamma, cap)
     if err == _ERR_SHARED_MEMORY:
         raise ValueError("fennel_sweep: the staging ring does not fit in a block's shared memory")
     if err == _ERR_SHAPE:
-        raise ValueError(f"fennel_sweep: n_free={n_free} and k={k} are outside what the "
-                         f"kernel takes")
+        raise ValueError(f"fennel_sweep: n_free={n_free}, k={k} and n_pad={node_w.shape[0]} "
+                         f"are outside what the kernel takes")
     if err != 0:
         raise RuntimeError(f"fennel_sweep launch failed with CUDA error {err}")
     with _count_lock:

@@ -5,7 +5,8 @@ kernel, the device engines against the port's host `sparse` engine, the
 pipelined driver's worker thread on the caller's stream, and the
 out-of-core path on the device engine: a disk stream against the graph in
 memory, resume from a snapshot, and a restream pass with an exact cut;
-the sweep kernel on fractional edge weights; the front door
+the sweep kernel on fractional edge weights and on levels whose order
+steps from node to neighbour (and its stamped copy); the front door
 (`repro_torch.api.partition`) with BuffCut and HeiStream on the card.
 
 Every test is marked `cuda` and skips without a card.  The file imports
@@ -30,6 +31,7 @@ from repro_torch.kernels import fennel_gain as fg
 from repro_torch.kernels import swa_attention as sw
 from repro_torch.launch.serve import serve_dlrm
 from repro_torch.models import dlrm
+from _sweep_levels import KINDS, chained_level
 
 eb = importlib.import_module("repro_torch.kernels.embedding_bag")
 
@@ -428,8 +430,17 @@ SWEEP_CASES = ([(3000, 4096, k, 1500, 3000, 1.5) for k in (2, 31, 32, 33, 64, 25
 
 def _sweep_on_card_against_plain(n, n_pad, k, n_free, hub, gamma, cap_share, card,
                                  monkeypatch, fractional=False):
-    arrays, n, n_free, loads0, cap, w_c = _sweep_level(n, n_pad, k, n_free, hub, cap_share,
-                                                       seed=k + n_pad, fractional=fractional)
+    level = _sweep_level(n, n_pad, k, n_free, hub, cap_share, seed=k + n_pad,
+                         fractional=fractional)
+    return _sweep_check(level, gamma, card, monkeypatch)
+
+
+def _sweep_check(level, gamma, card, monkeypatch):
+    """`_initial_fennel` on the card (one sweep launch) against the plain
+    sweep on the arguments it prepared; returns those arguments and the
+    labels and loads."""
+    arrays, n, n_free, loads0, cap, w_c = level
+    k = loads0.shape[0]
     seen = {}
 
     def record(*a, **kw):
@@ -448,6 +459,7 @@ def _sweep_on_card_against_plain(n, n_pad, k, n_free, hub, gamma, cap_share, car
     assert bool((labels[:n] >= 0).all())
     if k * cap < arrays[3].sum():
         assert float(loads.max()) > cap  # the fallback ran
+    return seen, labels, loads
 
 
 @pytest.mark.parametrize("cap_share", [1.05, 0.97])
@@ -468,6 +480,63 @@ def test_sweep_kernel_matches_plain_on_fractional_weights(n, n_pad, k, n_free, h
     reduction does; labels and loads must still agree bit for bit."""
     _sweep_on_card_against_plain(n, n_pad, k, n_free, hub, gamma, cap_share, card, monkeypatch,
                                  fractional=True)
+
+
+@pytest.mark.parametrize("k", [1, 2, 31, 32])
+@pytest.mark.parametrize("gamma", [1.5, 3.0])
+@pytest.mark.parametrize("kind", KINDS)
+def test_sweep_kernel_matches_plain_on_chained_levels(kind, gamma, k, card, monkeypatch):
+    """Levels whose order steps from a node to its neighbour (a path, a
+    mesh's rows), so the kernel's keys for "my block took the step
+    before" decide most steps: integer weights, weights up to 2^40,
+    integral and fractional segments alternating in one launch, segments
+    past the short path's 8 entries, ties in every block, steps with no
+    feasible block, one free node.  Bit for bit against the plain sweep."""
+    level = chained_level(kind, k, seed=k, side=55)
+    _, n, n_free, _, cap, _ = level
+    _, labels, loads = _sweep_check(level, gamma, card, monkeypatch)
+    if kind == "infeasible":
+        assert float(loads.max()) > cap
+    if kind == "single":
+        assert n_free == 1
+    if kind == "ties":  # unit weights over k blocks: the loads differ by at most one
+        assert float(loads.max() - loads.min()) <= 1.0
+
+
+@pytest.mark.parametrize("kind", ["mesh", "mixed", "long", "ties", "infeasible"])
+def test_sweep_stamped_copy_matches_kernel_and_counts_paths(kind, card, monkeypatch):
+    """The stamped copy (`_sweep_stamped`, chip_smoke's cycle counters)
+    gives the kernel's labels and loads and counts every prepared step on
+    one summation path at most; it launches nothing that is counted."""
+    arrays, n, n_free, loads0, cap, w_c = chained_level(kind, 32, seed=5, side=55)
+    a = [torch.from_numpy(x).to(card) for x in arrays]
+    seen = {}
+
+    def record(*x, **y):
+        seen["args"], seen["kw"] = x, y
+
+    monkeypatch.setattr(mlt, "fennel_sweep", record)
+    mlt._initial_fennel(*a, n, n_free, torch.from_numpy(loads0).to(card), 0.3, 1.5, cap,
+                        w_c=w_c)
+    sa, skw = seen["args"], seen["kw"]
+    kw = {key: skw[key] for key in ("alpha", "gamma", "cap")}
+    before = fg.sweep_launches
+    labels, loads, st = fg._sweep_stamped(*sa, **kw)
+    assert fg.sweep_launches == before
+    want_labels, want_loads = fg.fennel_sweep(*sa, **skw)
+    assert torch.equal(labels, want_labels) and torch.equal(loads, want_loads)
+    assert st["steps"] == n_free
+    paths = st["long_steps"] + st["direct_steps"] + st["ordered_steps"] + st["exact_steps"]
+    assert paths <= n_free
+    assert st["main_cycles"] > 0 and st["chain_cycles"] > 0 and st["chain_reps"] > 0
+    if kind == "long":
+        assert st["long_steps"] == n_free
+    if kind == "mixed":
+        assert st["ordered_steps"] > 0 and st["exact_steps"] > 0
+    if kind == "infeasible":
+        assert st["fallback_steps"] > 0
+    if kind == "ties":  # every block ties at the first step
+        assert st["settle_steps"] > 0
 
 
 def test_dlrm_forward_launches_one_bag_kernel_per_forward(card):

@@ -5,7 +5,8 @@ reference JAX engine agrees too, and so does the initial Fennel sweep on
 the CPU against the reference's `_initial_fennel`; the sequential Fennel
 loop is bit-identical.  On fractional edge weights (uniform(0.5, 2.0)),
 where the engines sum in different orders, the labels of all of them
-still agree, the V-cycle's and the initial sweep's alike."""
+still agree, the V-cycle's and the initial sweep's alike; and so does the
+initial sweep on the sweep kernel's card-test levels."""
 import importlib.util
 from pathlib import Path
 
@@ -28,6 +29,7 @@ from repro_torch.graphs.csr import bucket_size
 from repro_torch.kernels import _build
 from repro_torch.kernels import fennel_gain as fg
 from repro_torch.kernels.fennel_gain import fennel_gain_sequential
+from _sweep_levels import KINDS, chained_level
 
 
 def _port(g):
@@ -201,6 +203,46 @@ def test_initial_fennel_matches_reference(gamma, k, jax_engine, monkeypatch):
     assert loads.numpy().tobytes() == want_loads.tobytes()  # bitwise, not approx
     assert bool((labels[:n] >= 0).all()) and bool((labels[n:] == -1).all())
     assert loads.max() > cap  # some step took the least-loaded fallback
+
+
+@pytest.mark.parametrize("k", [1, 2, 31, 32])
+@pytest.mark.parametrize("gamma", [1.5, 3.0])
+@pytest.mark.parametrize("kind", KINDS)
+def test_chained_levels_initial_fennel_matches_reference(kind, gamma, k, jax_engine):
+    """The sweep card tests' levels (`_sweep_levels`: orders that step from
+    a node to its neighbour, weights up to 2^40, integral and fractional
+    segments alternating, long segments, ties, infeasible steps, one free
+    node) at a small size: the port's `_initial_fennel` on CPU tensors,
+    the plain sweep that those tests hold the kernel to, against the jax
+    engine copy's fori_loop, labels and loads bit for bit."""
+    import jax.numpy as jnp
+
+    arrays, n, n_free, loads0, cap, w_c = chained_level(kind, k, seed=k, side=10)
+    alpha = 0.4
+    with jax_engine.enable_x64():
+        want = jax_engine._initial_fennel(*map(jnp.asarray, arrays), n, jnp.asarray(loads0),
+                                          alpha, gamma, cap, w_c=w_c)
+        want_labels, want_loads = (np.asarray(a) for a in want)
+    labels, loads = mlt._initial_fennel(*map(torch.from_numpy, arrays), n, n_free,
+                                        torch.from_numpy(loads0), alpha, gamma, cap, w_c=w_c)
+    np.testing.assert_array_equal(labels.numpy(), want_labels)
+    assert loads.numpy().tobytes() == want_loads.tobytes()
+    assert bool((labels[:n] >= 0).all())
+    if kind == "infeasible":
+        assert float(loads.max()) > cap
+
+
+def test_stamped_sweep_refuses_cpu_tensors():
+    """The stamped copy of the sweep kernel has no plain version: on CPU
+    tensors it raises before building anything."""
+    arrays, n, n_free, loads0, cap, w_c = chained_level("mesh", 4, seed=0, side=6)
+    esrc, edst, ew, node_w, pinned = map(torch.from_numpy, arrays)
+    order = torch.argsort(-node_w, stable=True)
+    indptr = torch.searchsorted(esrc, torch.arange(node_w.shape[0] + 1))
+    labels = torch.where(pinned >= 0, pinned, -1)
+    with pytest.raises(ValueError, match="cuda tensors only"):
+        fg._sweep_stamped(esrc, edst, ew, node_w, order, indptr, labels,
+                          torch.from_numpy(loads0), n_free, alpha=0.4, gamma=1.5, cap=cap)
 
 
 def _fractional(g, seed):

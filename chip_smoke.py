@@ -185,7 +185,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
               HeiStream on phase 3's R-MAT on torch/cuda equal to host
               sparse; and `repro_torch.launch.serve.main(["--arch",
               "partition", "--graph", "gen:grid:side=256", ...])` on the
-              card.
+              card;
+22. gnn       the GNN path at full width: `rgg_graph(232965, seed=3)`
+              (Reddit's node count; average degree ~25, cut from Reddit's
+              ~492 because BuffCut's host loop pays per edge) in
+              `random_order(., 1)`; `place_graph(g, 8, method="buffcut")`
+              on the card (scaled_config: Q = 29,120, delta = 7,280; engine
+              auto: the host V-cycle with the histogram kernel) with labels
+              bit-equal to `place_graph(..., device="cpu")`'s (the host
+              sparse engine), histogram launches on the path, the cut
+              equal to edge_cut and loads within L_max; `placement_report`
+              of the four methods on the host (BuffCut's halo below
+              random's; it and the host placement run in a spawned
+              process beside the card's) and `reorder_for_shards`
+              shard-major; then
+              graphsage-reddit's full_config (d_in 602, d_hidden 128, 41
+              classes, fanout 25-10) trained 20 steps with AdamW(lr=1e-2,
+              warmup_steps=5) on batches of 1024 seeds sampled with
+              `sample_multihop(..., block_of=placement.block)`, features
+              (n x 602 float32) resident on the card and gathered there,
+              labels block % 41: every loss finite, the last below the
+              first, the first step's loss and gradient norm equal to the
+              CPU's at rtol 1e-4; prints the sampler's ms a step, a step's
+              device ms (CUDA events behind a spin), wall ms, idle share
+              and peak memory; then `build_training` of egnn, meshgraphnet
+              and schnet at `--preset full` on the card through `TrainLoop`
+              for 10 steps, a checkpoint every 5 and one injected fault
+              (retries == 1, finite losses, the first equal to the CPU's at
+              rtol 1e-4).  Its histogram launches join the kernels line.
 
 Phase 2 also runs swa_attention's general paths (G = 32, D = 36 in bf16, a
 strided q with an int64 pos) and phase 10 fennel_gain at k = 65,536 (the
@@ -2639,6 +2666,237 @@ def phase_api(path: str, side: int, full_res) -> dict:
     return {"cli": cli, "heistream": hei}
 
 
+# ------------------------------------------------------------ the GNN path
+
+# Reddit's node count (configs/gnn_common.py), 8 data shards, the full-width
+# GraphSAGE's training steps, and the other archs' steps through TrainLoop
+GNN_NODES, GNN_SHARDS, GNN_STEPS, GNN_LOOP_STEPS = 232_965, 8, 20, 10
+
+
+def gnn_loop_run(arch: str) -> None:
+    """`build_training(arch, "full")` on the card through `TrainLoop` for
+    GNN_LOOP_STEPS steps, a checkpoint every 5, one injected fault at step
+    7 (restored from step 5); its first loss against the CPU's."""
+    import math
+    import shutil
+
+    from repro_torch.launch.train import build_training
+    from repro_torch.train import AdamW, CheckpointManager, LoopConfig, TrainLoop, make_train_step
+
+    ckpt_dir = OOC_DIR / f"gnn_ckpt_{arch}"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    _, params, loss, data = build_training(arch, "full", device="cuda")
+    # the optimizer `python -m repro_torch.launch.train --steps 10` builds
+    opt = AdamW(lr=3e-4, warmup_steps=GNN_LOOP_STEPS // 10 + 1)
+    faults = []
+
+    def hook(step: int) -> None:
+        if step == 7 and not faults:
+            faults.append(step)
+            raise RuntimeError("injected node failure")
+
+    loop = TrainLoop(make_train_step(loss, opt), CheckpointManager(str(ckpt_dir)),
+                     LoopConfig(total_steps=GNN_LOOP_STEPS, checkpoint_every=5),
+                     fault_hook=hook)
+    t0 = time.perf_counter()
+    (_, state), hist = loop.run(params, opt.init(params), data)
+    dt = time.perf_counter() - t0
+    steps_kept = loop.ckpt.all_steps()
+    check(loop.retries == 1 and faults == [7], f"{arch}: retries {loop.retries}, faults {faults}")
+    check(len(hist) == GNN_LOOP_STEPS + 2 and int(state.count) == GNN_LOOP_STEPS
+          and steps_kept == [5, 10],
+          f"{arch}: {len(hist)} losses, count {int(state.count)}, checkpoints {steps_kept}")
+    check(all(math.isfinite(x) for x in hist), f"{arch}: a loss is not finite: {hist}")
+    _, cpu_params, cpu_loss, cpu_data = build_training(arch, "full", device="cpu")
+    cpu_first = float(make_train_step(cpu_loss, opt)(cpu_params, opt.init(cpu_params),
+                                                      next(cpu_data))[2]["loss"])
+    check(abs(hist[0] - cpu_first) <= 1e-4 * abs(cpu_first),
+          f"{arch}: first loss {hist[0]!r} on the card, {cpu_first!r} on the CPU")
+    log(f"[gnn] build_training({arch!r}, 'full') on cuda through TrainLoop: {len(hist)} steps "
+        f"for {GNN_LOOP_STEPS} (one fault at step 7, restored from step 5), loss "
+        f"{hist[0]:.6f} -> {hist[-1]:.6f}, {dt / len(hist) * 1e3:.2f} ms a step (host clock, "
+        f"checkpoints included), retries {loop.retries}, checkpoints kept {steps_kept}; the "
+        f"first loss on the CPU {cpu_first:.6f} (rel err "
+        f"{abs(hist[0] - cpu_first) / abs(cpu_first):.2e})")
+    shutil.rmtree(ckpt_dir)
+
+
+def gnn_host_placement(g):
+    """Phase 22's host side, run in a spawned process while the card places
+    `g`: `place_graph(device="cpu")`, the labels' reference (host sparse),
+    then `placement_report(device="cpu")` and its seconds."""
+    import repro_torch.distributed.gnn_placement as gp
+
+    host = gp.place_graph(g, GNN_SHARDS, method="buffcut", device="cpu")
+    t0 = time.perf_counter()
+    report = gp.placement_report(g, GNN_SHARDS, 602, device="cpu")
+    return host, report, time.perf_counter() - t0
+
+
+def phase_gnn() -> int:
+    """Phase 22: BuffCut as the GNN placement service on the card, then
+    graphsage-reddit trained on the placement at full width, then the three
+    other GNN archs through the trainer's entry point.  Returns the
+    histogram launches of the placement on the card."""
+    import concurrent.futures
+    import math
+    import multiprocessing
+
+    import numpy as np
+    import torch
+
+    import repro_torch.distributed.gnn_placement as gp
+    from repro_torch.configs import gnn_common, graphsage_reddit
+    from repro_torch.configs.buffcut_paper import scaled_config
+    from repro_torch.core.metrics import balance, edge_cut, l_max
+    from repro_torch.graphs import (
+        apply_order,
+        cross_block_fraction,
+        random_order,
+        rgg_graph,
+        sample_multihop,
+    )
+    from repro_torch.kernels import ell_histogram as eh
+    from repro_torch.models import gnn
+    from repro_torch.train import AdamW, make_train_step
+    from repro_torch.tree import tree_map
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for this check")
+    log(f"[gnn] card: {gpu_name_and_limit()}")
+    t0 = time.perf_counter()
+    g0 = rgg_graph(GNN_NODES, seed=3)
+    g = apply_order(g0, random_order(g0, 1))
+    t_graph = time.perf_counter() - t0
+    del g0
+    log(f"[gnn] apply_order(rgg_graph({GNN_NODES}, seed=3), random_order(., 1)): n={g.n} "
+        f"m={g.m} average degree {2 * g.m / g.n:.2f} max degree {g.max_degree}, built in "
+        f"{t_graph:.3f} s")
+
+    # --- the placement on the card; the same call on the host and the report
+    # run meanwhile in a spawned process, which never touches the card
+    with concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn")) as pool:
+        host_job = pool.submit(gnn_host_placement, g)
+        eh.launches = 0
+        t0 = time.perf_counter()
+        placement = gp.place_graph(g, GNN_SHARDS, method="buffcut")
+        t_place = time.perf_counter() - t0
+        launches = eh.launches
+        host, report, t_report = host_job.result()
+    bc, st, hst = scaled_config(g.n, k=GNN_SHARDS), placement.stats, host.stats
+    check(launches > 0, "the BuffCut placement launched no ell_histogram kernel")
+    check(np.array_equal(placement.block, host.block),
+          "BuffCut labels on cuda differ from the host sparse engine's")
+    cut = edge_cut(g, placement.block)
+    bal = balance(g, placement.block, GNN_SHARDS)
+    check(placement.cut_edges == cut == st.cut_weight,
+          f"placement cut {placement.cut_edges}, edge_cut {cut}, streamed {st.cut_weight}")
+    cap = l_max(float(g.n), GNN_SHARDS, 0.03)
+    check(placement.loads.max() <= cap, f"placement loads {placement.loads.max()} over L_max {cap}")
+    perm = gp.reorder_for_shards(g, placement)
+    check(np.array_equal(np.sort(perm), np.arange(g.n))
+          and bool((np.diff(placement.block[perm]) >= 0).all()),
+          "reorder_for_shards is not a shard-major permutation")
+    log(f"[gnn] place_graph(g, {GNN_SHARDS}, method='buffcut') on cuda (scaled_config: Q="
+        f"{bc.buffer_size} delta={bc.batch_size} d_max={bc.d_max}, engine {bc.ml.engine}): "
+        f"{t_place:.3f} s (runtime_s {st.runtime_s:.3f}, ml_time_s {st.ml_time_s:.3f}, "
+        f"batches {st.n_batches}), ell_histogram launches {launches}; cut {cut:.0f} (cut "
+        f"ratio {cut / g.m:.6f}) balance {bal:.6f}; labels bit-equal to device='cpu' (host "
+        f"sparse: runtime_s {hst.runtime_s:.3f}, ml_time_s {hst.ml_time_s:.3f}); shard sizes "
+        f"{np.bincount(placement.block, minlength=GNN_SHARDS).tolist()}")
+    for method, r in report.items():
+        log(f"[gnn] placement_report {method:8s} cut_edges {r['cut_edges']:.0f} halo "
+            f"{r['halo_MB_per_layer']:.3f} MB/layer (d_feat 602) imbalance "
+            f"{r['load_imbalance']:.6f}")
+    check(report["buffcut"]["cut_edges"] == cut, "the report's BuffCut cut differs")
+    check(report["buffcut"]["halo_MB_per_layer"] < report["random"]["halo_MB_per_layer"],
+          "BuffCut's halo is not below random's")
+    log(f"[gnn] placement_report(device='cpu'): {t_report:.3f} s (in the host process, "
+        f"after its place_graph; both beside the card's placement)")
+
+    # --- graphsage-reddit at full width on the placement
+    cfg = graphsage_reddit.full_config()
+    check((cfg.d_in, cfg.d_hidden, cfg.n_classes, cfg.sample_sizes) == (602, 128, 41, (25, 10)),
+          f"graphsage-reddit full_config is {cfg}")
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    feats_host = rng.standard_normal((g.n, cfg.d_in), dtype=np.float32)
+    torch.cuda.reset_peak_memory_stats()
+    feats = torch.from_numpy(feats_host).cuda()
+    labels_host = (placement.block % cfg.n_classes).astype(np.int32)
+    labels = torch.from_numpy(labels_host).cuda()
+    t_feats = time.perf_counter() - t0
+    init = gnn.sage_init(torch.Generator().manual_seed(0), cfg)
+    params = tree_map(lambda t: t.cuda(), init)
+    opt = AdamW(lr=1e-2, warmup_steps=5)
+    step = make_train_step(lambda p, b: gnn.sage_loss(p, b, cfg), opt)
+    opt_state = opt.init(params)
+    b = gnn_common.BATCH_NODES
+    losses, sample_ms, iter_ms = [], [], []
+    for it in range(GNN_STEPS):
+        t0 = time.perf_counter()
+        seeds = rng.integers(0, g.n, b)
+        layers = sample_multihop(g, seeds, cfg.sample_sizes, seed=it, block_of=placement.block)
+        t1 = time.perf_counter()
+        ids = [torch.from_numpy(la).cuda() for la in layers]
+        batch = {"feats": [feats[i] for i in ids], "labels": labels[ids[0]]}
+        params, opt_state, metrics = step(params, opt_state, batch)
+        losses.append(float(metrics["loss"]))
+        iter_ms.append((time.perf_counter() - t0) * 1e3)
+        sample_ms.append((t1 - t0) * 1e3)
+        if it == 0:
+            first = (layers, seeds, float(metrics["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated()
+    check([la.shape[0] for la in first[0]] == [b, b * 25, b * 250],
+          f"sampled layers {[la.shape[0] for la in first[0]]}")
+    check(all(math.isfinite(x) for x in losses), f"a GraphSAGE loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"the GraphSAGE loss did not fall: {losses}")
+    cross = cross_block_fraction(g, layers, placement.block)
+    # the first step again on the CPU, from the same weights and samples
+    cpu_batch = {"feats": [torch.from_numpy(feats_host[la]) for la in first[0]],
+                 "labels": torch.from_numpy(labels_host[first[1]])}
+    t0 = time.perf_counter()
+    _, _, cpu_m = step(init, opt.init(init), cpu_batch)
+    t_cpu = time.perf_counter() - t0
+    cpu_loss, cpu_gnorm = float(cpu_m["loss"]), float(cpu_m["grad_norm"])
+    check(abs(losses[0] - cpu_loss) <= 1e-4 * abs(cpu_loss)
+          and abs(first[2] - cpu_gnorm) <= 1e-4 * abs(cpu_gnorm),
+          f"first step: loss {losses[0]!r} / grad norm {first[2]!r} on the card, "
+          f"{cpu_loss!r} / {cpu_gnorm!r} on the CPU")
+    # one step's device time (CUDA events behind a spin) and wall time
+    dev = device_ms(lambda: step(params, opt_state, batch), samples=3, reps=3)
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = sorted(walls)[2]
+    log(f"[gnn] graphsage-reddit full_config (d_in 602, d_hidden 128, 41 classes, fanout "
+        f"25-10), {GNN_STEPS} steps of {b} seeds ({b} + {b * 25} + {b * 250} node slots), "
+        f"AdamW(lr=1e-2, warmup_steps=5), partition-aware sampling: loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}; losses {[round(x, 4) for x in losses]}; cross-shard gather "
+        f"fraction {cross:.4f}; features {feats_host.nbytes / 1e6:.1f} MB on the card "
+        f"({t_feats:.3f} s to draw and copy)")
+    log(f"[gnn] a step: sampler {np.median(sample_ms):.1f} ms (host numpy, median of "
+        f"{GNN_STEPS}), whole iteration {np.median(iter_ms):.1f} ms (sample, copy ids, "
+        f"gather, step, loss to host); the train step alone: device {dev:.3f} ms (CUDA "
+        f"events behind a spin), wall {wall:.3f} ms (synchronized), idle share "
+        f"{1 - dev / wall:.3f}; peak device memory {peak / 2**30:.3f} GiB")
+    log(f"[gnn] first step on the CPU (same weights and samples): loss {cpu_loss:.6f} "
+        f"grad norm {cpu_gnorm:.6f}; on the card {losses[0]:.6f} / {first[2]:.6f} (rel err "
+        f"{abs(losses[0] - cpu_loss) / abs(cpu_loss):.2e} / "
+        f"{abs(first[2] - cpu_gnorm) / abs(cpu_gnorm):.2e}); CPU step {t_cpu:.3f} s")
+    del feats, labels, params, opt_state, batch, ids
+    torch.cuda.empty_cache()
+
+    # --- the other GNN archs through the trainer's entry point
+    for arch in ("egnn", "meshgraphnet", "schnet"):
+        gnn_loop_run(arch)
+    return launches
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -2714,6 +2972,7 @@ def main(argv: list[str] | None = None) -> int:
     served = timed("serve partition", phase_serve_partition, side, full_res)
     api = timed("api", phase_api, path, side, full_res)
     Path(path).unlink()
+    gnn_launches = timed("gnn", phase_gnn)
     log(f"[kernels] launches of phases 16-21 beside phase 5's (the kernels line): "
         f"ell_histogram {hist['launches']}; disk {disk[2][2]} and {disk[0][2]}, resume "
         f"{crash[0]}, restream {restream[0]}, shard {shard[0]}, shard from disk "
@@ -2722,7 +2981,9 @@ def main(argv: list[str] | None = None) -> int:
         f"fennel_sweep {sweeps}; disk {disk[2][3]} and {disk[0][3]}, resume {crash[1]}, "
         f"restream {restream[1]}, shard {shard[1]}, shard from disk {shard_disk[1]}, "
         f"reconcile {reconcile[1]}, serve {served[1]}, CLI {api['cli']['fennel_sweep']}, "
-        f"heistream {api['heistream']['fennel_sweep']}")
+        f"heistream {api['heistream']['fennel_sweep']}; phase 22 (the GNN placement): "
+        f"ell_histogram {gnn_launches}, added to the kernels line")
+    hist["launches"] += gnn_launches
     log(f"[env] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [hist, swa, bag, fennel, sweep]}))
     print(gpu_name_and_limit())

@@ -1,14 +1,29 @@
 """Architecture registry: `--arch <id>` resolution.
 
-The port holds h2o-danube-1.8b and dlrm-mlperf so far; the reference's
-other archs (four LMs, four GNNs) are listed as still to port in
-ROADMAP.md.
+The port holds h2o-danube-1.8b, dlrm-mlperf and the four GNNs (egnn,
+meshgraphnet, schnet, graphsage-reddit); the reference's four other LMs
+are listed as still to port in ROADMAP.md.
 """
-from repro_torch.configs import dlrm_mlperf, h2o_danube_1_8b
+from repro_torch.configs import (
+    dlrm_mlperf,
+    egnn,
+    graphsage_reddit,
+    h2o_danube_1_8b,
+    meshgraphnet,
+    schnet,
+)
 from repro_torch.configs.base import ArchSpec, ShapeDef
 
 ARCHS: dict[str, ArchSpec] = {
-    spec.arch_id: spec for spec in [h2o_danube_1_8b.SPEC, dlrm_mlperf.SPEC]
+    spec.arch_id: spec
+    for spec in [
+        h2o_danube_1_8b.SPEC,
+        egnn.SPEC,
+        meshgraphnet.SPEC,
+        schnet.SPEC,
+        graphsage_reddit.SPEC,
+        dlrm_mlperf.SPEC,
+    ]
 }
 
 

@@ -1,8 +1,8 @@
 """Carry inputs from a `repro` (JAX package) run into the port.
 
 The port shares no code with the JAX package, so what crosses over is
-plain data: a graph's CSR arrays, a driver configuration's dict, and a
-transformer's or a DLRM's parameter arrays.
+plain data: a graph's CSR arrays, a driver configuration's dict, a
+transformer's, a DLRM's or a GNN's parameter arrays, and an AdamW state.
 """
 from __future__ import annotations
 
@@ -12,6 +12,8 @@ import torch
 from repro_torch.core.buffcut import BuffCutConfig
 from repro_torch.graphs.csr import CSRGraph
 from repro_torch.models.transformer import TransformerConfig
+from repro_torch.train.adamw import AdamWState
+from repro_torch.tree import tree_map
 
 
 def graph_from_numpy(
@@ -68,3 +70,22 @@ def dlrm_params_from_numpy(params: dict, device: str | torch.device = "cuda") ->
         "bot": {name: leaf(arr) for name, arr in params["bot"].items()},
         "top": {name: leaf(arr) for name, arr in params["top"].items()},
     }
+
+
+def gnn_params_from_numpy(params: dict, device: str | torch.device = "cuda") -> dict:
+    """The port's GNN parameter dict from a reference `*_init` pytree with
+    numpy leaves: the same nested keys (MLP dicts of `w{i}`, `b{i}`, and
+    SchNet's `species_embed` array), each leaf a float32 copy on `device`."""
+    return tree_map(lambda a: torch.from_numpy(np.array(a, dtype=np.float32)).to(device),
+                    params)
+
+
+def adamw_state_from_numpy(state, device: str | torch.device = "cuda") -> AdamWState:
+    """The port's `AdamWState` from a reference `AdamWState(m, v, count)`
+    with numpy leaves: float32 moments and an int32 count on `device`."""
+    m, v, count = state
+    return AdamWState(
+        m=gnn_params_from_numpy(m, device),
+        v=gnn_params_from_numpy(v, device),
+        count=torch.tensor(int(np.asarray(count)), dtype=torch.int32, device=device),
+    )

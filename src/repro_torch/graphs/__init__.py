@@ -1,6 +1,6 @@
 """Graph substrate of the port: CSR graphs, generators, stream orderings,
 in-memory and disk streams, METIS and packed IO, fault injection, stream
-locality (AID)."""
+locality (AID), and the GNN fanout sampler."""
 from repro_torch.graphs.csr import CSRGraph, bucket_size
 from repro_torch.graphs.faults import FaultSchedule, FaultyFile, FaultyOpener
 from repro_torch.graphs.generators import (
@@ -24,6 +24,7 @@ from repro_torch.graphs.orderings import (
     random_order,
     source_order,
 )
+from repro_torch.graphs.sampler import cross_block_fraction, sample_block, sample_multihop
 from repro_torch.graphs.stream import NodeStream, NodeStreamBase, StreamShard, as_node_stream
 from repro_torch.graphs.stream_io import (
     DiskNodeStream,
@@ -62,6 +63,9 @@ __all__ = [
     "konect_order",
     "random_order",
     "source_order",
+    "cross_block_fraction",
+    "sample_block",
+    "sample_multihop",
     "NodeStream",
     "NodeStreamBase",
     "StreamShard",

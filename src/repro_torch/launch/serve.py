@@ -190,6 +190,9 @@ def main(argv: list[str] | None = None) -> None:
     from repro_torch.configs import dlrm_mlperf, get_arch
 
     spec = get_arch(args.arch)
+    if spec.family == "gnn":
+        raise ValueError(f"{args.arch} is a GNN: serve has no GNN mode; train it with "
+                         "python -m repro_torch.launch.train")
     cfg = spec.smoke_config()
     if spec.family == "recsys":
         batch = (dlrm_mlperf.smoke_batch(cfg, 0) if args.batch is None

@@ -1,2 +1,3 @@
 """Model substrate of the port: the decoder-only transformer (dense, GQA,
-sliding-window attention), DLRM, and their building blocks."""
+sliding-window attention), DLRM, the GNN zoo (EGNN, MeshGraphNet, SchNet,
+GraphSAGE), and their building blocks."""

@@ -2,7 +2,6 @@
 
 Weights keep the reference's `(fan_in, fan_out)` layout and apply as
 `x @ w + b`, so carrying the reference's weights across is a copy.
-`layer_norm` waits for the GNN slice.
 """
 from __future__ import annotations
 
@@ -50,6 +49,15 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     `x * rsqrt(var + eps)` in float32, rounded to x's dtype, then scaled."""
     var = x.float().square().mean(dim=-1, keepdim=True)
     return (x * torch.rsqrt(var + eps)).to(x.dtype) * scale
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-6) -> torch.Tensor:
+    """(x - mean) * rsqrt(var + eps) * scale + bias over the last axis, the
+    variance biased (the reference's `jnp.var`)."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, keepdim=True, correction=0)
+    return (x - mean) * torch.rsqrt(var + eps) * scale + bias
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

@@ -10,8 +10,10 @@ Parameters are the reference's pytree as a dict: `tables` (T, V, D) stacked,
 `bot` and `top` MLP dicts.  Both `dlrm_forward` and `dlrm_retrieval` pool
 all T tables in one call of the stacked `embedding_bag` op, which on a card
 is one launch of the CUDA kernel (the reference's `use_kernel` switch is
-not ported: the kernel computes the same function).  Training waits for
-the bag's backward.
+not ported: the kernel computes the same function).  Training on the card
+waits for the bag's backward: there the op raises on tables that require
+grad.  On the CPU the plain bag is differentiable, so `dlrm_loss` has the
+reference's gradient for the tables.
 """
 from __future__ import annotations
 
@@ -95,7 +97,7 @@ def dlrm_forward(params: dict, batch: dict, cfg: DLRMConfig) -> torch.Tensor:
 
 
 def dlrm_loss(params: dict, batch: dict, cfg: DLRMConfig) -> torch.Tensor:
-    """Mean binary cross-entropy of the click logits (forward only)."""
+    """Mean binary cross-entropy of the click logits."""
     logits = dlrm_forward(params, batch, cfg)
     y = batch["labels"].to(torch.float32)
     return torch.mean(

@@ -96,6 +96,36 @@ def test_bucket_pq_extraction_trace_matches_reference(seed):
     assert trace_a == trace_b
 
 
+# An op sequence (insert v 0.0 / extract / raise v to 0.5) after which the
+# reference's BucketPQ holds more tombstones than live entries in a bucket,
+# against the structural invariant of tests/test_buffer.py (ROADMAP "Known
+# states"). The port keeps the reference's buckets, holes and trace.
+_TOMBSTONE_OPS = ("i0 x r0 i1 r0 i2 i3 i4 i5 i6 i7 i8 i9 x i10 x x i11 x R1 x r0 i12 i13 x r0 x "
+                  "R3 r0 R2 x x i14 i15 x x x r0 x")
+
+
+def test_bucket_pq_matches_reference_where_tombstones_outnumber_live():
+    a, b = BucketPQ(1.0, 100), RefBucketPQ(1.0, 100)
+    alive, trace_a, trace_b = set(), [], []
+    for op in _TOMBSTONE_OPS.split():
+        if op[0] == "i":
+            a.insert(int(op[1:]), 0.0)
+            b.insert(int(op[1:]), 0.0)
+            alive.add(int(op[1:]))
+        elif op[0] in "rR":
+            if int(op[1:]) in alive:
+                s = 0.5 if op[0] == "R" else 0.0
+                a.increase_key(int(op[1:]), s)
+                b.increase_key(int(op[1:]), s)
+        elif alive:
+            trace_a.append(a.extract_max())
+            trace_b.append(b.extract_max())
+            alive.discard(trace_b[-1])
+    assert trace_a == trace_b
+    assert a.buckets == b.buckets and a._holes == b._holes and a.loc == b.loc
+    assert b.buckets[0] == [-1, -1, -1, 4, 5] and b._holes[0] == 3
+
+
 @pytest.mark.parametrize("engine", ["auto", "sparse", "ell", "jax"])
 def test_config_round_trips_from_reference(engine):
     ref = RefBuffCutConfig(k=8, eps=0.05, buffer_size=512, batch_size=64, score="nss",

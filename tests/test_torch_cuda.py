@@ -7,7 +7,11 @@ out-of-core path on the device engine: a disk stream against the graph in
 memory, resume from a snapshot, and a restream pass with an exact cut;
 the sweep kernel on fractional edge weights and on levels whose order
 steps from node to neighbour (and its stamped copy); the front door
-(`repro_torch.api.partition`) with BuffCut and HeiStream on the card.
+(`repro_torch.api.partition`) with BuffCut and HeiStream on the card; the
+GNN path: GraphSAGE's sampled loss and gradients, segment_mean and every
+GNN arch's first full-preset step on the card against the CPU, BuffCut
+placement on the card against the host, and the bag refusing a table
+that requires grad.
 
 Every test is marked `cuda` and skips without a card.  The file imports
 neither jax nor the JAX package, so it runs on a machine that has only
@@ -765,3 +769,110 @@ def test_api_on_card_matches_host_sparse(driver, card, monkeypatch):
     assert got.cut_weight == want.cut_weight
     assert sweeps == len(vcycles) == got.stats.n_batches > 1
     assert hist > 0
+
+
+# ------------------------------------------------------------ the GNN path
+
+def _tree_to(tree, device):
+    from repro_torch.tree import tree_map
+
+    return tree_map(lambda t: t.to(device) if torch.is_tensor(t) else t, tree)
+
+
+def test_sage_sampled_loss_and_grads_on_card_match_cpu(card, monkeypatch):
+    """graphsage-reddit at full width on a sampled batch of 64 seeds (25-10
+    fanout): loss and every gradient on the card equal the CPU's at rtol
+    1e-4 with TF32 off."""
+    from repro_torch.configs import graphsage_reddit
+    from repro_torch.models import gnn
+    from repro_torch.train.loop import value_and_grad
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg = graphsage_reddit.full_config()
+    params = gnn.sage_init(torch.Generator().manual_seed(0), cfg)
+    rng = np.random.default_rng(0)
+    b, (f1, f2) = 64, cfg.sample_sizes
+    batch = {"feats": [torch.from_numpy(rng.standard_normal((n, cfg.d_in)).astype(np.float32))
+                       for n in (b, b * f1, b * f1 * f2)],
+             "labels": torch.from_numpy(rng.integers(0, cfg.n_classes, b).astype(np.int32))}
+    loss_fn = lambda p, bt: gnn.sage_loss(p, bt, cfg)  # noqa: E731
+    want_loss, want = value_and_grad(loss_fn, params, batch)
+    got_loss, got = value_and_grad(loss_fn, _tree_to(params, card), _tree_to(batch, card))
+    torch.testing.assert_close(got_loss.cpu(), want_loss, rtol=1e-4, atol=1e-6)
+    from repro_torch.tree import tree_flatten_with_path
+
+    want_flat = dict(tree_flatten_with_path(want))
+    for path, g in tree_flatten_with_path(got):
+        assert g.device.type == "cuda"
+        torch.testing.assert_close(g.cpu(), want_flat[path], rtol=1e-4, atol=1e-6, msg=path)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_segment_mean_on_card_matches_cpu(masked, card):
+    """index_add on the card sums with float atomics, in no fixed order:
+    equal to the CPU's at rtol 1e-5."""
+    from repro_torch.models import gnn
+
+    rng = np.random.default_rng(1)
+    data = torch.from_numpy(rng.standard_normal((200_000, 64)).astype(np.float32))
+    ids = torch.from_numpy(rng.integers(0, 5000, 200_000).astype(np.int32))
+    mask = torch.from_numpy((rng.random(200_000) > 0.2).astype(np.float32)) if masked else None
+    want = gnn.segment_mean(data, ids, 6000, mask)
+    got = gnn.segment_mean(data.to(card), ids.to(card), 6000,
+                           None if mask is None else mask.to(card))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-6)
+    with pytest.raises(IndexError):
+        gnn.segment_mean(data.to(card), ids.to(card), 4000)
+
+
+@pytest.mark.parametrize("arch", ["egnn", "meshgraphnet", "schnet", "graphsage-reddit"])
+def test_gnn_full_preset_first_step_on_card_matches_cpu(arch, card, monkeypatch):
+    """`build_training(arch, "full")`'s first train step on the card: its
+    loss and gradient norm equal the CPU's at rtol 1e-4 (TF32 off)."""
+    from repro_torch.launch.train import build_training
+    from repro_torch.train import AdamW, make_train_step
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        cfg, params, loss, data = build_training(arch, "full", device=dev)
+        opt = AdamW(lr=1e-3)
+        _, _, m = make_train_step(loss, opt)(params, opt.init(params), next(data))
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]))
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4)
+
+
+def test_place_graph_on_card_matches_cpu_and_launches_the_histogram(card):
+    """BuffCut placement through the default engine (`auto`: the host
+    V-cycle with the histogram kernel on the card) gives the host `sparse`
+    engine's labels."""
+    from repro_torch.distributed.gnn_placement import place_graph
+    from repro_torch.graphs import apply_order, random_order, rgg_graph
+
+    g0 = rgg_graph(8192, seed=3)
+    g = apply_order(g0, random_order(g0, 1))
+    before = eh.launches
+    got = place_graph(g, 8, method="buffcut")
+    launched = eh.launches - before
+    want = place_graph(g, 8, method="buffcut", device="cpu")
+    np.testing.assert_array_equal(got.block, want.block)
+    assert got.cut_edges == want.cut_edges and launched > 0
+
+
+def test_embedding_bag_raises_on_a_card_table_that_requires_grad(card):
+    """The kernel has no backward: a table that requires grad, with grad
+    mode on, raises instead of losing its gradient; serving (no grad) and
+    a table without grad launch as before."""
+    table = torch.randn((100, 16), device=card, requires_grad=True)
+    idx = torch.randint(0, 100, (8, 2), device=card, dtype=torch.int32)
+    mask = torch.ones((8, 2), device=card)
+    before = eb.launches
+    with pytest.raises(RuntimeError, match="Queue 1 item 5"):
+        eb.embedding_bag(table, idx, mask)
+    assert eb.launches == before
+    with torch.no_grad():
+        served = eb.embedding_bag(table, idx, mask)
+    plain = eb.embedding_bag(table.detach(), idx, mask)
+    assert eb.launches == before + 2
+    assert torch.equal(served, plain)
+    assert torch.equal(plain, eb.embedding_bag_plain(table.detach(), idx, mask))

@@ -212,7 +212,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
               and schnet at `--preset full` on the card through `TrainLoop`
               for 10 steps, a checkpoint every 5 and one injected fault
               (retries == 1, finite losses, the first equal to the CPU's at
-              rtol 1e-4).  Its histogram launches join the kernels line.
+              rtol 1e-4).  Its histogram launches join the kernels line;
+23. moe_serve moonshot-v1-16b-a3b at full width and depth (48 layers,
+              28,888,467,456 parameters, 57.78 GB bf16, drawn on the card a
+              block of rows at a time) through `serve_lm`: batch 4, a
+              1024-token prompt, 32 greedy steps; finite logits, tokens in
+              range; prefill time, decode tok/s, ms a step against the
+              step's byte bound (every expert is read at T = 4), peak
+              memory, and how many experts received a token in each layer
+              at prefill; then stablelm-3b at full depth and llama4-scout
+              and command-r-plus cut to 8 layers (printed as reduced), each
+              at batch 4, a 256-token prompt and 8 steps, each freed before
+              the next;
+24. moe_parity moonshot at full width, 2 of 48 layers, float32, TF32 off:
+              prefill and 4 decode steps on the card and on the CPU from
+              the same weights, logits equal at rtol / atol 1e-3; one MoE
+              layer with its router's odd columns copies of the even ones:
+              slots, token ids and keep equal on both (ties to the lower
+              expert); the layer run twice on the card, bit-equal;
+25. train_lm  h2o-danube-1.8b at full width and depth through
+              `build_training(..., "full", 8, 128)`, `make_train_step` and
+              `TrainLoop` for 20 steps: finite losses, the last below the
+              first; a step's wall time, device time (profiler rows), idle
+              share, tokens/s and peak memory; then moonshot at full width
+              and 2 of 48 layers for 10 steps (the MoE backward); for both,
+              the first loss at 2 layers in float32 on the card equal to
+              the CPU's at rtol 1e-4;
+26. train_dlrm dlrm-mlperf at full width with 2^18 rows a table (printed as
+              reduced), 20 steps through `TrainLoop` at batch 4096: finite
+              losses, the first equal to the CPU's at rtol 1e-4, and 0
+              embedding_bag launches (the loss pools through the plain
+              bag).  Phases 23-26 launch no kernel of the port: the kernels
+              line adds their counts (0) to each kernel's.
 
 Phase 2 also runs swa_attention's general paths (G = 32, D = 36 in bf16, a
 strided q with an int64 pos) and phase 10 fennel_gain at k = 65,536 (the
@@ -2897,6 +2928,462 @@ def phase_gnn() -> int:
     return launches
 
 
+# ------------------------------------------------ phases 23-26: the LM family
+
+# phase 23: moonshot at full width and depth, batch 4, a 1024-token prompt,
+# 32 greedy steps; then the other three archs at batch 4, a 256-token prompt
+# and 8 steps, llama4-scout and command-r-plus cut to 8 layers (they hold
+# 107.8 B and 107.0 B parameters: 215.5 and 213.9 GB in bf16)
+MOE_BATCH, MOE_PROMPT, MOE_TOKENS = 4, 1024, 32
+OTHER_LMS = (("stablelm-3b", None), ("llama4-scout-17b-a16e", 8), ("command-r-plus-104b", 8))
+OTHER_PROMPT, OTHER_TOKENS = 256, 8
+# phase 24: moonshot at full width, 2 of 48 layers, float32; batch 2, a
+# 64-token prompt, 4 decode steps fed the same tokens on both devices
+PARITY_LAYERS, PARITY_BATCH, PARITY_PROMPT, PARITY_STEPS = 2, 2, 64, 4
+# phase 25: h2o-danube-1.8b at full width and depth, then moonshot at 2 of
+# 48 layers, batch 8 x seq 128 (the trainer's defaults)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, MOE_TRAIN_LAYERS, MOE_TRAIN_STEPS = 8, 128, 20, 2, 10
+# phase 26: dlrm-mlperf at full width with 2^18 rows a table, 20 steps
+DLRM_TRAIN_ROWS, DLRM_TRAIN_BATCH, DLRM_TRAIN_STEPS = 1 << 18, 4096, 20
+
+
+def kernel_modules() -> dict:
+    from repro_torch.kernels import ell_histogram as eh
+    from repro_torch.kernels import fennel_gain as fg
+    from repro_torch.kernels import swa_attention as sw
+
+    return {"ell_histogram": eh, "swa_attention": sw,
+            "embedding_bag": importlib.import_module("repro_torch.kernels.embedding_bag"),
+            "fennel_gain": fg}
+
+
+def zero_launches() -> None:
+    """Every kernel wrapper's launch count set to 0 (the sweep's too)."""
+    for mod in kernel_modules().values():
+        mod.launches = 0
+    kernel_modules()["fennel_gain"].sweep_launches = 0
+
+
+def read_launches() -> dict:
+    counts = {name: mod.launches for name, mod in kernel_modules().items()}
+    counts["fennel_sweep"] = kernel_modules()["fennel_gain"].sweep_launches
+    return counts
+
+
+def fresh_card(tag: str) -> None:
+    """Before a run that fills the card: collect garbage, empty the
+    allocator's cache and log what is still allocated."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[{tag}] device memory allocated before the run: "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB")
+
+
+def lm_params_on_card(cfg, seed: int):
+    """`init_params` on the card, its size checked against the config."""
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
+    t0 = time.perf_counter()
+    params = tfm.init_params(torch.Generator(device="cuda").manual_seed(seed), cfg)
+    torch.cuda.synchronize()
+    n = sum(t.numel() for t in params.values())
+    check(n == cfg.param_count(), f"{cfg.name}: {n} parameters, config says {cfg.param_count()}")
+    return params, n, time.perf_counter() - t0
+
+
+def serve_one(cfg, batch: int, prompt: int, tokens: int, tag: str, seed: int = 0):
+    """`serve_lm` of `cfg` on the card from weights drawn there: finite
+    logits, tokens in range; returns (result, params, peak bytes)."""
+    import torch
+
+    from repro_torch.launch.serve import serve_lm
+
+    fresh_card(tag)
+    torch.cuda.reset_peak_memory_stats()
+    params, n, t_draw = lm_params_on_card(cfg, seed)
+    size = n * params["embed"].element_size()
+    log(f"[{tag}] {cfg.name}: {n} parameters ({size / 1e9:.2f} GB in {cfg.dtype}, "
+        f"{cfg.n_layers} layers, {cfg.n_experts} experts) drawn on the card in {t_draw:.2f} s")
+    res = serve_lm(cfg, batch, prompt, tokens, device="cuda", params=params)
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(res.logits).all()), f"{cfg.name}: serve logits are not finite")
+    check(res.tokens.shape == (batch, tokens + 1)
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab)).all()),
+          f"{cfg.name}: bad served tokens")
+    log(f"[{tag}] {cfg.name} batch {batch}, prompt {prompt}, {tokens} new tokens: prefill "
+        f"{res.prefill_s:.4f} s ({batch * prompt / res.prefill_s:.0f} prompt tok/s), decode "
+        f"{res.decode_s:.4f} s ({res.tokens_per_s:.1f} tok/s, {res.decode_s / tokens * 1e3:.3f} "
+        f"ms/step), peak memory {peak / 2**30:.3f} GiB")
+    return res, params, peak
+
+
+def phase_moe_serve() -> dict:
+    """Phase 23: moonshot-v1-16b-a3b served at full width and depth, the
+    experts that received a token at prefill, the step against its byte
+    bound; then stablelm-3b, llama4-scout and command-r-plus at full width
+    (the last two at 8 layers).  Returns the kernels' launch counts."""
+    import dataclasses as dc
+    from unittest import mock
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+
+    cfg = get_arch("moonshot-v1-16b-a3b").full_config()
+    check(cfg.param_count() == 28_888_467_456, f"moonshot holds {cfg.param_count()}")
+    # the prefill's routing, read after the run: each layer's slots and keep
+    routed = []
+    real_dispatch = tfm._moe_dispatch
+
+    def recording(x, router, e, k, cap):
+        out = real_dispatch(x, router, e, k, cap)
+        if x.shape[0] == MOE_BATCH * MOE_PROMPT:
+            routed.append((out[0], out[3], cap))
+        return out
+
+    zero_launches()
+    with mock.patch.object(tfm, "_moe_dispatch", recording):
+        res, params, _ = serve_one(cfg, MOE_BATCH, MOE_PROMPT, MOE_TOKENS, "moe_serve")
+    counts = read_launches()
+    check(len(routed) == cfg.n_layers, f"{len(routed)} MoE layers routed at prefill")
+    used, kept = [], []
+    for slot, keep, cap in routed:
+        experts = torch.unique(slot[keep.reshape(-1)] // cap)
+        used.append(int(experts.numel()))
+        kept.append(float(keep.float().mean()))
+    # a decode step at T = B tokens: cap = _moe_cap(B, k, E) rows for every
+    # expert, so every expert's weights are read; the embedding table is
+    # read for B rows only; the cache up to the mean fill
+    cap = tfm._moe_cap(MOE_BATCH, cfg.top_k, cfg.n_experts, cfg.capacity_factor)
+    weight_bytes = 2 * (cfg.param_count() - cfg.vocab * cfg.d_model)
+    fill = MOE_PROMPT + (MOE_TOKENS + 1) / 2
+    cache_bytes = 2 * 2 * cfg.n_layers * MOE_BATCH * fill * cfg.n_kv_heads * cfg.d_head
+    step_ms = res.decode_s / MOE_TOKENS * 1e3
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[moe_serve] prefill routing ({MOE_BATCH * MOE_PROMPT} tokens, top-{cfg.top_k} of "
+        f"{cfg.n_experts}, cap {routed[0][2]}): experts that received a token per layer min "
+        f"{min(used)} median {int(np.median(used))} max {max(used)} of {cfg.n_experts}; kept "
+        f"share of (token, choice) min {min(kept):.4f} mean {np.mean(kept):.4f}")
+    log(f"[moe_serve] decode step: {step_ms:.3f} ms against a byte bound of {bound_ms:.3f} ms "
+        f"({weight_bytes / 1e9:.2f} GB of weights: at T = {MOE_BATCH} the capacity is {cap} "
+        f"rows for each of the {cfg.n_experts} experts, so every expert is read; "
+        f"{(weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3:.3f} ms with the KV cache's "
+        f"{cache_bytes / 1e9:.3f} GB), {bound_ms / step_ms:.3f} of the bound; launches {counts}")
+    del params, res, routed
+    torch.cuda.empty_cache()
+
+    for arch, layers in OTHER_LMS:
+        full = get_arch(arch).full_config()
+        cfg = full if layers is None else dc.replace(full, n_layers=layers)
+        if layers is not None:
+            log(f"[moe_serve] reduced: {arch} n_layers {full.n_layers} -> {layers} "
+                f"({full.param_count() / 1e9:.1f} B parameters, {2 * full.param_count() / 1e9:.1f} "
+                f"GB in bf16, do not fit one 80 GB card; {cfg.param_count() / 1e9:.1f} B, "
+                f"{2 * cfg.param_count() / 1e9:.1f} GB at {layers} layers)")
+        zero_launches()
+        res, params, _ = serve_one(cfg, MOE_BATCH, OTHER_PROMPT, OTHER_TOKENS, "moe_serve")
+        more = read_launches()
+        counts = {k: counts[k] + more[k] for k in counts}
+        del params, res
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_moe_parity() -> dict:
+    """Phase 24: moonshot at full width, 2 of 48 layers, float32 (TF32
+    off): prefill and 4 decode steps on the card and on the CPU from the
+    same weights; one MoE layer with duplicated router columns routed
+    alike on both; the layer twice on the card, bit for bit."""
+    import dataclasses as dc
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 must be off for this check")
+    full = get_arch("moonshot-v1-16b-a3b").full_config()
+    cfg = dc.replace(full, n_layers=PARITY_LAYERS, dtype="float32")
+    log(f"[moe_parity] reduced: {full.name} n_layers {full.n_layers} -> {PARITY_LAYERS}, "
+        f"float32 ({cfg.param_count() * 4 / 1e9:.2f} GB, held on the card and on the host)")
+    fresh_card("moe_parity")
+    params, _, _ = lm_params_on_card(cfg, seed=1)
+    t0 = time.perf_counter()
+    host = {k: v.cpu() for k, v in params.items()}
+    t_copy = time.perf_counter() - t0
+    toks = np.random.default_rng(2).integers(
+        0, cfg.vocab, (PARITY_BATCH, PARITY_PROMPT + PARITY_STEPS)).astype(np.int32)
+    max_len = PARITY_PROMPT + PARITY_STEPS + 1
+    zero_launches()
+    out = {}
+    with torch.inference_mode():
+        for dev, p in (("cuda", params), ("cpu", host)):
+            t = torch.from_numpy(toks).to(dev)
+            t0 = time.perf_counter()
+            logits, cache = tfm.forward_prefill(p, t[:, :PARITY_PROMPT], cfg, max_len)
+            steps = [logits]
+            for i in range(PARITY_STEPS):
+                logits, cache = tfm.forward_decode(
+                    p, t[:, PARITY_PROMPT + i:PARITY_PROMPT + i + 1], cache, cfg)
+                steps.append(logits)
+            out[dev] = torch.cat(steps, dim=1).cpu()
+            log(f"[moe_parity] prefill + {PARITY_STEPS} decode steps on {dev}: "
+                f"{time.perf_counter() - t0:.3f} s")
+    check(bool(torch.isfinite(out["cuda"]).all()), "card logits are not finite")
+    torch.testing.assert_close(out["cuda"], out["cpu"], rtol=1e-3, atol=1e-3)
+    err = float((out["cuda"] - out["cpu"]).abs().max())
+
+    # one layer, its router's odd columns copies of the even ones
+    e, k = cfg.n_experts, cfg.top_k
+    layer = tfm._layers(params)[0]
+    layer["router"] = layer["router"].clone()
+    layer["router"][:, 1::2] = layer["router"][:, 0::2]
+    host_layer = {key: v.cpu() for key, v in layer.items()}
+    x = torch.randn((MOE_BATCH * MOE_PROMPT, cfg.d_model),
+                    generator=torch.Generator().manual_seed(3))
+    cap = tfm._moe_cap(x.shape[0], k, e, cfg.capacity_factor)
+    with torch.inference_mode():
+        card_route = tfm._moe_dispatch(x.cuda(), layer["router"], e, k, cap)
+        host_route = tfm._moe_dispatch(x, host_layer["router"], e, k, cap)
+        for name, i in (("slot", 0), ("token", 1), ("keep", 3)):
+            check(torch.equal(card_route[i].cpu(), host_route[i]),
+                  f"tied router: {name} on the card differs from the CPU's")
+        chosen = card_route[0][card_route[3].reshape(-1)] // cap
+        odd = chosen[chosen % 2 == 1]
+        check(bool(torch.isin(odd - 1, chosen).all()), "a tie did not go to the lower expert")
+        x3 = x.cuda().reshape(MOE_BATCH, MOE_PROMPT, cfg.d_model)
+        first = tfm.moe_ffn(x3, layer, cfg)
+        again = tfm.moe_ffn(x3, layer, cfg)
+        torch.cuda.synchronize()
+    counts = read_launches()
+    check(torch.equal(first, again), "the MoE layer's rerun on the card is not bit-equal")
+    log(f"[moe_parity] card == CPU: prefill + {PARITY_STEPS} decode logits (batch "
+        f"{PARITY_BATCH}, prompt {PARITY_PROMPT}) at rtol/atol 1e-3, max_abs_err={err:g} "
+        f"(|logits| max {float(out['cpu'].abs().max()):.3f}; weights to the host in "
+        f"{t_copy:.2f} s); tied router ({e // 2} pairs, {x.shape[0]} tokens, cap {cap}): slots, "
+        f"tokens and keep equal, {int(chosen.numel())} kept choices, every odd expert with its "
+        f"even twin; the layer twice on the card: bit-equal; launches {counts}")
+    del params, host, layer, host_layer, first, again
+    torch.cuda.empty_cache()
+    return counts
+
+
+def first_loss_parity(full, seed: int) -> None:
+    """`full` at 2 layers in float32: the first train step's loss on the
+    card (through autograd, each layer recomputed) against `loss_fn` on the
+    CPU from the same weights, within rtol 1e-4."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.data import token_batches
+    from repro_torch.train.loop import value_and_grad
+
+    cfg = dc.replace(full, n_layers=2, dtype="float32")
+    params, _, _ = lm_params_on_card(cfg, seed)
+    batch = next(token_batches(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, device="cpu"))
+    loss, grads = value_and_grad(lambda p, b: tfm.loss_fn(p, b, cfg), params,
+                                 {k: v.cuda() for k, v in batch.items()})
+    card = float(loss)
+    gnorm = float(torch.sqrt(sum(g.float().square().sum() for g in grads.values())))
+    del grads
+    host = {k: v.cpu() for k, v in params.items()}
+    del params
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        cpu = float(tfm.loss_fn(host, batch, cfg))
+    check(abs(card - cpu) <= 1e-4 * abs(cpu),
+          f"{full.name}: first loss {card!r} on the card, {cpu!r} on the CPU")
+    log(f"[train_lm] {full.name} at 2 layers, float32: first loss on the card {card:.6f} "
+        f"(gradient norm {gnorm:.6f}), on the CPU {cpu:.6f}, rel err "
+        f"{abs(card - cpu) / abs(cpu):.2e}")
+
+
+def traced_device_ms(fn, attempts: int = 3) -> float | None:
+    """Device milliseconds of one call of `fn`: the sum of its device rows
+    (kernels, memsets, copies) in a torch.profiler trace of device activity.
+    A step of thousands of launches fills the card's launch queue, so the
+    spin that `device_ms` hides the host behind cannot cover it.  Traces
+    late in a long run have come back missing records, so two traces must
+    hold the same number of device records (a DLRM step alternates between
+    two counts); None (not measured) when no two in `attempts` + 1 do."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    for _ in range(attempts + 1):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        count = sum(e.count for e in rows)
+        total = sum(e.self_device_time_total for e in rows) / 1e3
+        if count > 0 and any(c == count for c, _ in seen):
+            return total
+        seen.append((count, total))
+    log(f"[env] no two profiler traces of a step held the same device records: {seen}")
+    return None
+
+
+def train_run(tag: str, loss, opt, params, data, steps: int, per_step: tuple[int, str]):
+    """`steps` steps of `make_train_step(loss, opt)` through `TrainLoop`
+    (no checkpoint within the run); then one step's device time (a
+    profiler trace) against its wall time, and the rate of `per_step`'s
+    items.  Returns the losses."""
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch.train import CheckpointManager, LoopConfig, TrainLoop, make_train_step
+
+    ckpt_dir = OOC_DIR / f"train_{tag}"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    step = make_train_step(loss, opt)
+    fresh_card(tag)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    loop = TrainLoop(step, CheckpointManager(str(ckpt_dir)),
+                     LoopConfig(total_steps=steps, checkpoint_every=steps + 1))
+    t0 = time.perf_counter()
+    # the first moments are not named here, so the loop frees them after
+    # its first step (the peak is then that of a step)
+    (params, opt_state), hist = loop.run(params, opt.init(params), data)
+    dt = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(len(hist) == steps and loop.retries == 0, f"{tag}: {len(hist)} losses, "
+          f"{loop.retries} retries")
+    check(all(math.isfinite(x) for x in hist), f"{tag}: a loss is not finite: {hist}")
+    batch = next(data)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t1) * 1e3)
+    wall = float(np.median(walls))
+    dev = traced_device_ms(lambda: step(params, opt_state, batch))
+    busy = ("device not measured" if dev is None else
+            f"device {dev:.3f} ms (profiler rows), idle share {1 - dev / wall:.3f}")
+    log(f"[{tag}] {steps} steps through TrainLoop in {dt:.3f} s (the first included), loss "
+        f"{hist[0]:.6f} -> {hist[-1]:.6f}; losses {[round(x, 4) for x in hist]}; a step: wall "
+        f"{wall:.3f} ms (synchronized, median of 3), {busy}, {per_step[0] / wall * 1e3:.0f} "
+        f"{per_step[1]}/s; peak device memory {peak / 2**30:.3f} GiB")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    return hist
+
+
+def phase_train_lm() -> dict:
+    """Phase 25: h2o-danube-1.8b trained at full width and depth through
+    `build_training(..., "full")`, `make_train_step` and `TrainLoop`; then
+    moonshot at full width, 2 of 48 layers (the MoE backward); each first
+    loss against the CPU's at 2 layers in float32."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import build_training
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train import AdamW
+    from repro_torch.train.data import token_batches
+
+    fresh_card("train_lm")
+    zero_launches()
+    t0 = time.perf_counter()
+    cfg, params, loss, data = build_training("h2o-danube-1.8b", "full", TRAIN_BATCH,
+                                             TRAIN_SEQ, device="cuda")
+    torch.cuda.synchronize()
+    log(f"[train_lm] build_training('h2o-danube-1.8b', 'full', {TRAIN_BATCH}, {TRAIN_SEQ}): "
+        f"{cfg.param_count()} parameters drawn on the host and moved to the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    # the optimizer `python -m repro_torch.launch.train --steps 20` builds
+    opt = AdamW(lr=3e-4, warmup_steps=TRAIN_STEPS // 10 + 1)
+    hist = train_run("train_lm", loss, opt, params, data, TRAIN_STEPS,
+                     (TRAIN_BATCH * TRAIN_SEQ, "tokens"))
+    check(hist[-1] < hist[0], f"the h2o-danube loss did not fall: {hist}")
+    del params, data
+    torch.cuda.empty_cache()
+    first_loss_parity(cfg, seed=4)
+
+    full = get_arch("moonshot-v1-16b-a3b").full_config()
+    cfg = dc.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    log(f"[train_lm] reduced: {full.name} n_layers {full.n_layers} -> {MOE_TRAIN_LAYERS} "
+        f"({cfg.param_count() / 1e9:.2f} B parameters; the functional AdamW holds two sets "
+        f"of float32 moments, 16 bytes a parameter, so {full.n_layers} layers would need "
+        f"{full.param_count() * 16 / 1e9:.0f} GB for them alone)")
+    params, _, _ = lm_params_on_card(cfg, seed=5)
+    opt = AdamW(lr=3e-4, warmup_steps=MOE_TRAIN_STEPS // 10 + 1)
+    train_run("train_moe", lambda p, b: tfm.loss_fn(p, b, cfg), opt, params,
+              token_batches(cfg.vocab, TRAIN_BATCH, TRAIN_SEQ, device="cuda"),
+              MOE_TRAIN_STEPS, (TRAIN_BATCH * TRAIN_SEQ, "tokens"))
+    del params
+    torch.cuda.empty_cache()
+    first_loss_parity(full, seed=6)
+    counts = read_launches()
+    log(f"[train_lm] launches {counts}")
+    return counts
+
+
+def phase_train_dlrm() -> dict:
+    """Phase 26: dlrm-mlperf at full width with 2^18 rows a table, trained
+    through `TrainLoop`; its loss pools through the plain bag, so the
+    phase launches no embedding_bag kernel.  The first loss against the
+    CPU's from the same weights."""
+    import dataclasses as dc
+
+    import torch
+
+    from repro_torch.configs import dlrm_mlperf
+    from repro_torch.models.dlrm import dlrm_init, dlrm_loss
+    from repro_torch.train import AdamW
+    from repro_torch.train.data import dlrm_batches
+    from repro_torch.tree import tree_map
+
+    full = dlrm_mlperf.full_config()
+    cfg = dc.replace(full, vocab_size=DLRM_TRAIN_ROWS)
+    tables = lambda c: c.n_sparse * c.vocab_size * c.embed_dim * 4 / 1e9  # noqa: E731
+    log(f"[train_dlrm] reduced: vocab_size {full.vocab_size} -> {cfg.vocab_size} rows a table "
+        f"(tables {tables(full):.2f} -> {tables(cfg):.2f} GB; a step of the functional AdamW "
+        f"holds ~12 times the tables: the state, its gradient, the new state and the update's "
+        f"temporaries, past 80 GB at full size)")
+    fresh_card("train_dlrm")
+    zero_launches()
+    params = dlrm_init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    loss = lambda p, b: dlrm_loss(p, b, cfg)  # noqa: E731
+    first = next(dlrm_batches(cfg, DLRM_TRAIN_BATCH, device="cpu"))
+    with torch.no_grad():
+        card = float(loss(params, {k: v.cuda() for k, v in first.items()}))
+        cpu = float(loss(tree_map(lambda t: t.cpu(), params), first))
+    check(abs(card - cpu) <= 1e-4 * abs(cpu), f"DLRM first loss {card!r} on the card, "
+          f"{cpu!r} on the CPU")
+    hist = train_run("train_dlrm", loss, AdamW(lr=3e-4, warmup_steps=DLRM_TRAIN_STEPS // 10 + 1),
+                     params, dlrm_batches(cfg, DLRM_TRAIN_BATCH, device="cuda"),
+                     DLRM_TRAIN_STEPS, (DLRM_TRAIN_BATCH, "samples"))
+    counts = read_launches()
+    check(counts["embedding_bag"] == 0, f"DLRM training launched {counts['embedding_bag']} "
+          "embedding_bag kernels")
+    log(f"[train_dlrm] batch {DLRM_TRAIN_BATCH}: first loss on the card {card:.6f}, on the CPU "
+        f"{cpu:.6f} (rel err {abs(card - cpu) / abs(cpu):.2e}); last {hist[-1]:.6f}; launches "
+        f"{counts}")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -2973,6 +3460,8 @@ def main(argv: list[str] | None = None) -> int:
     api = timed("api", phase_api, path, side, full_res)
     Path(path).unlink()
     gnn_launches = timed("gnn", phase_gnn)
+    lm = [timed("moe_serve", phase_moe_serve), timed("moe_parity", phase_moe_parity),
+          timed("train_lm", phase_train_lm), timed("train_dlrm", phase_train_dlrm)]
     log(f"[kernels] launches of phases 16-21 beside phase 5's (the kernels line): "
         f"ell_histogram {hist['launches']}; disk {disk[2][2]} and {disk[0][2]}, resume "
         f"{crash[0]}, restream {restream[0]}, shard {shard[0]}, shard from disk "
@@ -2984,6 +3473,11 @@ def main(argv: list[str] | None = None) -> int:
         f"heistream {api['heistream']['fennel_sweep']}; phase 22 (the GNN placement): "
         f"ell_histogram {gnn_launches}, added to the kernels line")
     hist["launches"] += gnn_launches
+    for entry, name in ((hist, "ell_histogram"), (swa, "swa_attention"), (bag, "embedding_bag"),
+                        (fennel, "fennel_gain"), (sweep, "fennel_sweep")):
+        entry["launches"] += sum(counts[name] for counts in lm)
+    log(f"[kernels] launches of phases 23-26 (moe_serve, moe_parity, train_lm, train_dlrm), "
+        f"added to the kernels line: {lm}")
     log(f"[env] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [hist, swa, bag, fennel, sweep]}))
     print(gpu_name_and_limit())

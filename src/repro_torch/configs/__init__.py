@@ -1,22 +1,26 @@
-"""Architecture registry: `--arch <id>` resolution.
-
-The port holds h2o-danube-1.8b, dlrm-mlperf and the four GNNs (egnn,
-meshgraphnet, schnet, graphsage-reddit); the reference's four other LMs
-are listed as still to port in ROADMAP.md.
-"""
+"""Architecture registry: `--arch <id>` resolution for the reference's
+ten archs, in its order."""
 from repro_torch.configs import (
+    command_r_plus_104b,
     dlrm_mlperf,
     egnn,
     graphsage_reddit,
     h2o_danube_1_8b,
+    llama4_scout_17b_a16e,
     meshgraphnet,
+    moonshot_v1_16b_a3b,
     schnet,
+    stablelm_3b,
 )
 from repro_torch.configs.base import ArchSpec, ShapeDef
 
 ARCHS: dict[str, ArchSpec] = {
     spec.arch_id: spec
     for spec in [
+        llama4_scout_17b_a16e.SPEC,
+        moonshot_v1_16b_a3b.SPEC,
+        stablelm_3b.SPEC,
+        command_r_plus_104b.SPEC,
         h2o_danube_1_8b.SPEC,
         egnn.SPEC,
         meshgraphnet.SPEC,

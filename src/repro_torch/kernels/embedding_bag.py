@@ -21,7 +21,8 @@ float32 multiply and then an add, so the two agree bit for bit.
 tensors on the CPU, and for CUDA tensors it launches the kernel or raises.
 The kernel has no backward: on a CUDA table that requires grad, with grad
 mode on, the op raises rather than return a result with no gradient (the
-plain version, on the CPU, is differentiable).
+plain version is differentiable on every device, and DLRM's training loss
+pools through it, as the reference's does).
 `launches` counts kernel launches and nothing else.  (The package
 `repro_torch.kernels` exports the op `embedding_bag` under this module's
 name, as the reference's does: reach the module itself with
@@ -113,9 +114,9 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor) ->
     if table.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(
             "embedding_bag: the CUDA kernel has no backward, so a gradient for a table "
-            "that requires grad would silently be missing; training through the bag on "
-            "the card waits for ROADMAP Queue 1 item 5 (the plain version on CPU tensors "
-            "has one, or call under torch.no_grad() to serve)")
+            "that requires grad would silently be missing; train through "
+            "embedding_bag_plain, as models.dlrm.dlrm_loss does, or call under "
+            "torch.no_grad() to serve")
     tab, ix, _ = _stacked(table, idx, mask)
     t, v, d = tab.shape
     b, _, n_slots = ix.shape

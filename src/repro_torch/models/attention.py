@@ -17,6 +17,14 @@ import torch
 NEG_INF = -1e30
 
 
+def _scale(d: int) -> float:
+    """The reference's float32 `1 / sqrt(d)`, computed on the host: a float
+    that float32 holds exactly, so a product with it equals the product
+    with the reference's float32 scalar.  (A device tensor built from a
+    host number would copy to the card, and wait for it, at every call.)"""
+    return float(1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32)))
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
     """Rotary embedding. x: (..., S, H, D); positions: (..., S)."""
     d = x.shape[-1]
@@ -51,7 +59,7 @@ def flash_attention(
     skv, kvh = k.shape[1], k.shape[2]
     g = h // kvh
     dev = q.device
-    scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32, device=dev))
+    scale = _scale(d)
     q_chunk = min(q_chunk, sq)
     kv_chunk = min(kv_chunk, skv)
     n_q = -(-sq // q_chunk)
@@ -114,7 +122,7 @@ def decode_attention(
     h = q.shape[2]
     groups = h // kvh
     qg = q[:, 0].reshape(b, kvh, groups, d).float()
-    scale = 1.0 / torch.sqrt(torch.tensor(d, dtype=torch.float32, device=q.device))
+    scale = _scale(d)
     scores = torch.einsum("bkgd,bskd->bkgs", qg, k_cache.float()) * scale
     positions = torch.arange(s, device=q.device)[None, :]
     valid = positions < pos[:, None]  # (B, S)

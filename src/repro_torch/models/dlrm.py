@@ -10,10 +10,11 @@ Parameters are the reference's pytree as a dict: `tables` (T, V, D) stacked,
 `bot` and `top` MLP dicts.  Both `dlrm_forward` and `dlrm_retrieval` pool
 all T tables in one call of the stacked `embedding_bag` op, which on a card
 is one launch of the CUDA kernel (the reference's `use_kernel` switch is
-not ported: the kernel computes the same function).  Training on the card
-waits for the bag's backward: there the op raises on tables that require
-grad.  On the CPU the plain bag is differentiable, so `dlrm_loss` has the
-reference's gradient for the tables.
+not ported: the kernel computes the same function).  `dlrm_loss`, the
+training loss, pools through the bag's plain version on every device, as
+the reference's does (its `dlrm_loss` calls `dlrm_forward` with the
+default `use_kernel=False`): the kernel has no backward, and its op raises
+on a CUDA table that requires grad.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ import math
 
 import torch
 
-from repro_torch.kernels.embedding_bag import embedding_bag
+from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_plain
 from repro_torch.models.common import mlp_apply, mlp_init
 
 
@@ -80,25 +81,31 @@ def _interact(dense_v: torch.Tensor, sparse_v: torch.Tensor) -> torch.Tensor:
     return dots[:, iu, ju]  # (B, F*(F-1)/2)
 
 
-def _pool(params: dict, idx: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """(B, T, D): every table's bag, in one call of the stacked op."""
-    return embedding_bag(params["tables"], idx.to(torch.int32).contiguous(),
-                         mask.to(torch.float32).contiguous())
+def _pool(params: dict, idx: torch.Tensor, mask: torch.Tensor, bag) -> torch.Tensor:
+    """(B, T, D): every table's bag, in one call of `bag` (the stacked op
+    or its plain version)."""
+    return bag(params["tables"], idx.to(torch.int32).contiguous(),
+               mask.to(torch.float32).contiguous())
 
 
-def dlrm_forward(params: dict, batch: dict, cfg: DLRMConfig) -> torch.Tensor:
-    """batch: dense (B, 13) float, sparse_idx (B, 26, M) int32,
-    sparse_mask (B, 26, M) float. Returns click logits (B,)."""
+def _forward(params: dict, batch: dict, bag) -> torch.Tensor:
     dense_v = mlp_apply(params["bot"], batch["dense"], act=torch.relu, final_act=torch.relu)
-    sparse_v = _pool(params, batch["sparse_idx"], batch["sparse_mask"])  # (B, 26, D)
+    sparse_v = _pool(params, batch["sparse_idx"], batch["sparse_mask"], bag)  # (B, 26, D)
     z = _interact(dense_v, sparse_v)
     top_in = torch.cat([dense_v, z], dim=-1)
     return mlp_apply(params["top"], top_in, act=torch.relu)[:, 0]
 
 
+def dlrm_forward(params: dict, batch: dict, cfg: DLRMConfig) -> torch.Tensor:
+    """batch: dense (B, 13) float, sparse_idx (B, 26, M) int32,
+    sparse_mask (B, 26, M) float. Returns click logits (B,)."""
+    return _forward(params, batch, embedding_bag)
+
+
 def dlrm_loss(params: dict, batch: dict, cfg: DLRMConfig) -> torch.Tensor:
-    """Mean binary cross-entropy of the click logits."""
-    logits = dlrm_forward(params, batch, cfg)
+    """Mean binary cross-entropy of the click logits, pooled through the
+    plain bag (differentiable on every device; never the kernel)."""
+    logits = _forward(params, batch, embedding_bag_plain)
     y = batch["labels"].to(torch.float32)
     return torch.mean(
         torch.clamp(logits, min=0) - logits * y + torch.log1p(torch.exp(-logits.abs()))
@@ -113,6 +120,7 @@ def dlrm_retrieval(params: dict, batch: dict, cfg: DLRMConfig) -> torch.Tensor:
     """
     dense_v = mlp_apply(params["bot"], batch["query_dense"], act=torch.relu,
                         final_act=torch.relu)
-    sparse_v = _pool(params, batch["query_sparse_idx"], batch["query_sparse_mask"])
+    sparse_v = _pool(params, batch["query_sparse_idx"], batch["query_sparse_mask"],
+                     embedding_bag)
     user = dense_v[0] + sparse_v[0].mean(dim=0)  # (D,) pooled user tower
     return batch["candidates"] @ user

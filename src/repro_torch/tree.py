@@ -19,19 +19,22 @@ def _children(node) -> list[tuple[str, object]] | None:
     return None
 
 
+def _walk(node, prefix: str, out: list) -> None:
+    kids = _children(node)
+    if kids is None:
+        out.append((prefix, node))
+        return
+    for part, child in kids:
+        _walk(child, f"{prefix}/{part}" if prefix else part, out)
+
+
 def tree_flatten_with_path(tree) -> list[tuple[str, object]]:
-    """[(path, leaf)] in pytree order."""
+    """[(path, leaf)] in pytree order.  The walk is a module function, not
+    a closure over the list: a nested function that calls itself is a
+    reference cycle, and the list of leaves in it (a model's gradients, say)
+    would stay alive until the cyclic garbage collector ran."""
     out: list[tuple[str, object]] = []
-
-    def walk(node, prefix: str) -> None:
-        kids = _children(node)
-        if kids is None:
-            out.append((prefix, node))
-            return
-        for part, child in kids:
-            walk(child, f"{prefix}/{part}" if prefix else part)
-
-    walk(tree, "")
+    _walk(tree, "", out)
     return out
 
 

@@ -11,7 +11,9 @@ steps from node to neighbour (and its stamped copy); the front door
 GNN path: GraphSAGE's sampled loss and gradients, segment_mean and every
 GNN arch's first full-preset step on the card against the CPU, BuffCut
 placement on the card against the host, and the bag refusing a table
-that requires grad.
+that requires grad; the MoE layer on the card against the CPU (ties
+included) and rerun bit for bit, and every LM arch's and DLRM's first
+smoke train step on the card against the CPU.
 
 Every test is marked `cuda` and skips without a card.  The file imports
 neither jax nor the JAX package, so it runs on a machine that has only
@@ -867,7 +869,7 @@ def test_embedding_bag_raises_on_a_card_table_that_requires_grad(card):
     idx = torch.randint(0, 100, (8, 2), device=card, dtype=torch.int32)
     mask = torch.ones((8, 2), device=card)
     before = eb.launches
-    with pytest.raises(RuntimeError, match="Queue 1 item 5"):
+    with pytest.raises(RuntimeError, match="has no backward"):
         eb.embedding_bag(table, idx, mask)
     assert eb.launches == before
     with torch.no_grad():
@@ -876,3 +878,88 @@ def test_embedding_bag_raises_on_a_card_table_that_requires_grad(card):
     assert eb.launches == before + 2
     assert torch.equal(served, plain)
     assert torch.equal(plain, eb.embedding_bag_plain(table.detach(), idx, mask))
+
+
+# ------------------------------------------------- MoE and LM / DLRM training
+
+def _moe_layer(tied: bool, dtype: torch.dtype, seed: int = 0):
+    """A MoE layer with moonshot's routing (64 experts, top-6, 2 shared) at
+    d = 512, f = 256; with `tied`, every odd expert's router column is a
+    copy of the even one before it, so their probabilities tie."""
+    import dataclasses
+
+    from repro_torch.configs import moonshot_v1_16b_a3b
+    from repro_torch.models import transformer as tfm
+
+    cfg = dataclasses.replace(moonshot_v1_16b_a3b.full_config(), n_layers=1, d_model=512,
+                              d_ff=256, vocab=64, dtype={torch.float32: "float32",
+                                                         torch.bfloat16: "bfloat16"}[dtype])
+    params = tfm.init_params(torch.Generator().manual_seed(seed), cfg)
+    layer = tfm._layers(params)[0]
+    if tied:
+        layer["router"][:, 1::2] = layer["router"][:, 0::2]
+    return cfg, layer
+
+
+@pytest.mark.parametrize("tied", [False, True])
+def test_moe_ffn_on_card_matches_cpu(tied, card, monkeypatch):
+    """The dispatch's slots, token ids and keep mask on the card equal the
+    CPU's exactly (ties broken to the lower expert on both), and the
+    layer's output at rtol / atol 1e-4 in float32 with TF32 off."""
+    from repro_torch.models import transformer as tfm
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cfg, layer = _moe_layer(tied, torch.float32)
+    x3 = torch.from_numpy(np.random.default_rng(1).standard_normal((4, 128, 512))
+                          .astype(np.float32))
+    card_layer = {k: v.to(card) for k, v in layer.items()}
+    t, e, k = 512, cfg.n_experts, cfg.top_k
+    cap = tfm._moe_cap(t, k, e, cfg.capacity_factor)
+    want = tfm._moe_dispatch(x3.reshape(t, -1), layer["router"], e, k, cap)
+    got = tfm._moe_dispatch(x3.reshape(t, -1).to(card), card_layer["router"], e, k, cap)
+    for name, w, g in zip(("slot", "token", "weight", "keep"), want, got):
+        if name == "weight":
+            torch.testing.assert_close(g.cpu(), w, rtol=1e-5, atol=1e-6)
+        else:
+            assert torch.equal(g.cpu(), w), name
+    if tied:
+        chosen = got[0][got[3].reshape(-1)] // cap
+        odd = chosen[chosen % 2 == 1]
+        assert bool(torch.isin(odd - 1, chosen).all())
+    torch.testing.assert_close(tfm.moe_ffn(x3.to(card), card_layer, cfg).cpu(),
+                               tfm.moe_ffn(x3, layer, cfg), rtol=1e-4, atol=1e-4)
+
+
+def test_moe_ffn_rerun_on_card_is_bit_equal(card):
+    """bf16 at prefill size (4096 tokens): two runs give the same bits (no
+    float atomics in the combine; the pack's only repeated index is the
+    trash row, which is cut off)."""
+    from repro_torch.models import transformer as tfm
+
+    cfg, layer = _moe_layer(False, torch.bfloat16)
+    layer = {k: v.to(card) for k, v in layer.items()}
+    x3 = torch.randn((4, 1024, 512), generator=torch.Generator().manual_seed(2)).to(
+        card, torch.bfloat16)
+    first = tfm.moe_ffn(x3, layer, cfg)
+    assert torch.equal(first, tfm.moe_ffn(x3, layer, cfg))
+
+
+@pytest.mark.parametrize("arch", ["llama4-scout-17b-a16e", "moonshot-v1-16b-a3b", "stablelm-3b",
+                                  "command-r-plus-104b", "h2o-danube-1.8b", "dlrm-mlperf"])
+def test_lm_and_dlrm_smoke_first_step_on_card_matches_cpu(arch, card, monkeypatch):
+    """`build_training(arch, "smoke")`'s first train step on the card: loss
+    and gradient norm equal the CPU's at rtol 1e-4 (TF32 off); DLRM's loss
+    launches no bag kernel (it pools through the plain bag)."""
+    from repro_torch.launch.train import build_training
+    from repro_torch.train import AdamW, make_train_step
+
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        _, params, loss, data = build_training(arch, "smoke", device=dev)
+        opt = AdamW(lr=1e-3)
+        before = eb.launches
+        _, _, m = make_train_step(loss, opt)(params, opt.init(params), next(data))
+        assert eb.launches == before
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]))
+    np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4)

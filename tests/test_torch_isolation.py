@@ -1,5 +1,5 @@
 """repro_torch stands alone: it imports neither jax nor the JAX package
-`repro` (nor do `chip_smoke.py` and the port's example), and its device
+`repro` (nor do `chip_smoke.py` and the port's examples), and its device
 default is the card."""
 import ast
 import subprocess
@@ -10,8 +10,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                            ROOT / "examples" / "gnn_partition_pipeline_torch.py"]
+PORT_FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+    (ROOT / "examples").glob("*_torch.py"))
 
 
 def _module_names():

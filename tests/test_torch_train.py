@@ -446,19 +446,17 @@ def test_build_training_starts_the_card_and_the_cpu_from_the_same_weights(monkey
         train_cli.build_training("egnn", "smoke")
 
 
-@pytest.mark.parametrize("arch", ["h2o-danube-1.8b", "dlrm-mlperf"])
-def test_build_training_refuses_the_lm_and_recsys_families(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        train_cli.build_training(arch, "smoke", device="cpu")
-
-
 @pytest.mark.parametrize("flag", ["--batch", "--seq"])
 def test_train_cli_has_no_batch_or_seq_flag(flag, capsys):
-    """No GNN arch reads a batch or sequence size, so the CLI refuses them
+    """No GNN arch reads a batch or sequence size (they size LM and DLRM
+    batches), so for a GNN the CLI, and `build_training`, refuse them
     instead of ignoring them."""
     with pytest.raises(SystemExit):
         train_cli.main(["--arch", "graphsage-reddit", "--device", "cpu", flag, "64"])
-    assert "unrecognized arguments" in capsys.readouterr().err
+    assert f"error: {flag} sizes LM and DLRM batches; graphsage-reddit is a GNN" in \
+        capsys.readouterr().err
+    with pytest.raises(ValueError, match="is a GNN"):
+        train_cli.build_training("graphsage-reddit", "smoke", **{flag[2:]: 64}, device="cpu")
 
 
 # ------------------------------------------------------------ DLRM's bag

@@ -3,6 +3,9 @@
 The port shares no code with the JAX package, so what crosses over is
 plain data: a graph's CSR arrays, a driver configuration's dict, a
 transformer's, a DLRM's or a GNN's parameter arrays, and an AdamW state.
+Onto a device mesh, the same numpy arrays go through
+`train/elastic.py::reshard_state`, which places each leaf's block on its
+rank under the family's sharding rules.
 """
 from __future__ import annotations
 

@@ -1,5 +1,7 @@
 """Distributed runtime of the port: shard-parallel partitioning, GNN
-placement, gradient compression.
+placement, gradient compression, and the model-parallel runtime on a
+device mesh (sharding rules, the ring collective matmul; `spmd` holds the
+local regions the models run in).
 
 Names resolve lazily (PEP 562), so importing the package loads nothing
 until a name is used.
@@ -24,6 +26,18 @@ _LAZY = {
     "init_residuals": "compression",
     "quantize_int8": "compression",
     "dequantize_int8": "compression",
+    "quantized_psum": "compression",
+    # model-parallel runtime (torch.distributed)
+    "ShardingRules": "sharding",
+    "MeshSharding": "sharding",
+    "lm_sharding_rules": "sharding",
+    "lm_decode_sharding_rules": "sharding",
+    "gnn_sharding_rules": "sharding",
+    "dlrm_sharding_rules": "sharding",
+    "param_shardings": "sharding",
+    "batch_shardings": "sharding",
+    "collective_matmul_allgather": "overlap",
+    "halo_batch": "gnn_placement",
 }
 
 __all__ = list(_LAZY)

@@ -6,8 +6,8 @@
 2. Int8 linear quantization with a per-leaf scale: 4x volume reduction
    for one extra max-reduce.
 
-`quantized_psum`, the int8 all-reduce over a mesh axis, waits for the
-port's collectives (ROADMAP Queue 1 item 7).  Trees are nested dicts,
+`quantized_psum` is the int8 all-reduce over a mesh axis: functional
+collectives on the axis's process group.  Trees are nested dicts,
 lists and tuples of tensors, walked in the reference's order (dict keys
 sorted).  `torch.topk` may break ties between equal magnitudes otherwise
 than `jax.lax.top_k`.
@@ -17,6 +17,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 
@@ -68,3 +69,18 @@ def quantize_int8(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(torch.float32) * scale
+
+
+def quantized_psum(x: torch.Tensor, group: dist.ProcessGroup) -> torch.Tensor:
+    """All-reduce over `group` with int8 on the wire: quantize locally,
+    all-gather the int8 payload and the scales, dequantize-sum locally
+    (rounding half to even, as `jnp.round`).  The sum runs over ranks in
+    group order as one float32 contraction, the reference's `tensordot`."""
+    from repro_torch.distributed.spmd import all_gather
+
+    q, scale = quantize_int8(x)
+    n = dist.get_world_size(group)
+    qs = all_gather(q.reshape(1, -1), 0, group)            # (P, size) int8
+    ss = all_gather(scale.reshape(1), 0, group)            # (P,)
+    out = torch.tensordot(ss, qs.to(torch.float32), dims=([0], [0]))
+    return out.reshape(x.shape)

@@ -99,3 +99,11 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(library_path(name)))
             _LOADED[name] = lib
         return lib
+
+
+def is_fake(t) -> bool:
+    """True for a fake tensor (a dry-run under `FakeTensorMode`): it holds
+    no data, so no kernel can launch on it."""
+    from torch._subclasses.fake_tensor import is_fake as _is_fake
+
+    return _is_fake(t)

@@ -23,6 +23,8 @@ The kernel has no backward: on a CUDA table that requires grad, with grad
 mode on, the op raises rather than return a result with no gradient (the
 plain version is differentiable on every device, and DLRM's training loss
 pools through it, as the reference's does).
+On fake tensors (a dry-run under `FakeTensorMode`) there is nothing to
+launch on: the op returns the result's shape and launches nothing.
 `launches` counts kernel launches and nothing else.  (The package
 `repro_torch.kernels` exports the op `embedding_bag` under this module's
 name, as the reference's does: reach the module itself with
@@ -107,6 +109,9 @@ def embedding_bag(table: torch.Tensor, idx: torch.Tensor, mask: torch.Tensor) ->
     global launches
     _check(table, idx, mask)
     device = table.device
+    if _build.is_fake(table):
+        b, d = idx.shape[0], table.shape[-1]
+        return table.new_empty((b, table.shape[0], d) if table.dim() == 3 else (b, d))
     if device.type == "cpu":
         return embedding_bag_plain(table, idx, mask)
     if device.type != "cuda":

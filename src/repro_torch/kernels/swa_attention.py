@@ -219,10 +219,13 @@ def swa_attention_decode(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.
     columns add nothing to q·k and give zero output columns, which are cut
     off) with the scale still 1/sqrt(D); more than 16 query heads a KV head
     run as one launch per group of at most 16.  `launches` counts every
-    kernel launch."""
+    kernel launch.  On fake tensors (a dry-run) it returns the result's
+    shape and launches nothing."""
     global launches
     _check(q, k_cache, v_cache, pos, window)
     device = q.device
+    if _build.is_fake(q):
+        return torch.empty_like(q)
     if device.type == "cpu":
         return swa_attention_decode_plain(q, k_cache, v_cache, _pos_int32(pos), window=window)
     if device.type != "cuda":

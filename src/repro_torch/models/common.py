@@ -62,7 +62,13 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Mean token cross-entropy; logits (..., V), labels (...) integer."""
+    """Mean token cross-entropy; logits (..., V), labels (...) integer.
+    On DTensor logits each rank sums its own tokens' NLL (a local region)
+    and the sums are reduced: the logits' gradient never exists whole."""
+    from repro_torch.distributed import spmd
+
+    if spmd.is_dtensor(logits):
+        return _cross_entropy_sharded(logits, labels, mask)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
@@ -70,3 +76,27 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     if mask is not None:
         return (nll * mask).sum() / mask.sum().clamp(min=1.0)
     return nll.mean()
+
+
+def _cross_entropy_sharded(logits, labels, mask):
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    from repro_torch.distributed import spmd
+
+    mesh = logits.device_mesh
+    rows_pl = tuple(logits.placements)   # split by tokens only; labels follow
+    lg = logits.to_local().float()
+    lab = spmd.with_placements(labels, rows_pl).to_local()
+    logz = torch.logsumexp(lg, dim=-1)
+    gold = torch.gather(lg, -1, lab[..., None].long())[..., 0]
+    nll = logz - gold
+    part = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in rows_pl)
+    repl = spmd.replicated(mesh.ndim)
+
+    def total(x):  # the ranks' partial sums, reduced to one value on every rank
+        return spmd.with_placements(spmd.local_out(x, mesh, part, ()), repl)
+
+    if mask is None:
+        return total(nll.sum()) / labels.numel()
+    m = spmd.with_placements(mask, rows_pl).to_local()
+    return total((nll * m).sum()) / total(m.sum()).clamp(min=1.0)

@@ -15,6 +15,14 @@ training loss, pools through the bag's plain version on every device, as
 the reference's does (its `dlrm_loss` calls `dlrm_forward` with the
 default `use_kernel=False`): the kernel has no backward, and its op raises
 on a CUDA table that requires grad.
+
+On a device mesh (DTensor parameters and batch, `launch/steps.py`'s DLRM
+cells) the tables are split by rows over every rank and the pool is a
+local region: each rank pools, for every row of the batch, the lookups
+that fall in its block of rows (the bag on its local shard of the
+tables), and the blocks' partial sums are reduced into the batch's
+layout.  The MLPs and the interaction then run on each rank's own rows
+with the replicated MLP weights.
 """
 from __future__ import annotations
 
@@ -23,6 +31,9 @@ import math
 
 import torch
 
+from torch.distributed.tensor import Partial, Replicate, Shard
+
+from repro_torch.distributed import spmd
 from repro_torch.kernels.embedding_bag import embedding_bag, embedding_bag_plain
 from repro_torch.models.common import mlp_apply, mlp_init
 
@@ -84,16 +95,56 @@ def _interact(dense_v: torch.Tensor, sparse_v: torch.Tensor) -> torch.Tensor:
 def _pool(params: dict, idx: torch.Tensor, mask: torch.Tensor, bag) -> torch.Tensor:
     """(B, T, D): every table's bag, in one call of `bag` (the stacked op
     or its plain version)."""
+    if spmd.is_dtensor(params["tables"]):
+        return _pool_sharded(params["tables"], idx, mask, bag)
     return bag(params["tables"], idx.to(torch.int32).contiguous(),
                mask.to(torch.float32).contiguous())
 
 
-def _forward(params: dict, batch: dict, bag) -> torch.Tensor:
-    dense_v = mlp_apply(params["bot"], batch["dense"], act=torch.relu, final_act=torch.relu)
-    sparse_v = _pool(params, batch["sparse_idx"], batch["sparse_mask"], bag)  # (B, 26, D)
+def _pool_sharded(tables, idx, mask, bag):
+    """The pool with the tables (T, V, D) split by rows: the whole batch's
+    lookups on every rank, each masked to the rank's rows, one bag call on
+    the local shard, and the partial sums reduced into idx's layout."""
+    mesh = tables.device_mesh
+    repl = spmd.replicated(mesh.ndim)
+    i_pl = tuple(idx.placements)
+    ids = spmd.with_placements(idx, repl).to_local()
+    m = spmd.with_placements(mask, repl).to_local()
+    row0 = spmd.global_offset(tables)[1]
+    loc = tables.to_local()
+    rows = ids.long() - row0
+    mine = (rows >= 0) & (rows < loc.shape[1])
+    local_ids = torch.where(mine, rows, 0).to(torch.int32).contiguous()
+    local_mask = (m.to(torch.float32) * mine.to(torch.float32)).contiguous()
+    pooled = bag(loc, local_ids, local_mask)                     # partial over row blocks
+    t_pl = tuple(tables.placements)
+    pl = tuple(Partial() if isinstance(p, Shard) else Replicate() for p in t_pl)
+    out = spmd.local_out(pooled, mesh, pl, (*idx.shape[:2], tables.shape[2]))
+    return spmd.with_placements(out, i_pl)
+
+
+def _dense(params: dict, dense: torch.Tensor, sparse_v: torch.Tensor) -> torch.Tensor:
+    dense_v = mlp_apply(params["bot"], dense, act=torch.relu, final_act=torch.relu)
     z = _interact(dense_v, sparse_v)
     top_in = torch.cat([dense_v, z], dim=-1)
     return mlp_apply(params["top"], top_in, act=torch.relu)[:, 0]
+
+
+def _forward(params: dict, batch: dict, bag) -> torch.Tensor:
+    sparse_v = _pool(params, batch["sparse_idx"], batch["sparse_mask"], bag)  # (B, 26, D)
+    if not spmd.is_dtensor(sparse_v):
+        return _dense(params, batch["dense"], sparse_v)
+    # on a mesh: each rank's own rows, the MLP weights whole (their
+    # gradients partial over the ranks that split the batch)
+    mesh = sparse_v.device_mesh
+    b_pl = tuple(sparse_v.placements)
+    split = spmd.split_mesh_dims(b_pl)
+    repl = spmd.replicated(mesh.ndim)
+    mlps = {k: {n: spmd.local_in(w, repl, split) for n, w in params[k].items()}
+            for k in ("bot", "top")}
+    dense = spmd.local_in(batch["dense"], b_pl)
+    logits = _dense(mlps, dense, sparse_v.to_local())
+    return spmd.local_out(logits, mesh, b_pl, (sparse_v.shape[0],))
 
 
 def dlrm_forward(params: dict, batch: dict, cfg: DLRMConfig) -> torch.Tensor:
@@ -118,9 +169,20 @@ def dlrm_retrieval(params: dict, batch: dict, cfg: DLRMConfig) -> torch.Tensor:
     batch: query_dense (1, 13), query_sparse_idx/mask (1, 26, M),
     candidates (N, D). Returns scores (N,) = candidate · user-tower output.
     """
-    dense_v = mlp_apply(params["bot"], batch["query_dense"], act=torch.relu,
-                        final_act=torch.relu)
     sparse_v = _pool(params, batch["query_sparse_idx"], batch["query_sparse_mask"],
                      embedding_bag)
-    user = dense_v[0] + sparse_v[0].mean(dim=0)  # (D,) pooled user tower
-    return batch["candidates"] @ user
+    if not spmd.is_dtensor(sparse_v):
+        dense_v = mlp_apply(params["bot"], batch["query_dense"], act=torch.relu,
+                            final_act=torch.relu)
+        user = dense_v[0] + sparse_v[0].mean(dim=0)  # (D,) pooled user tower
+        return batch["candidates"] @ user
+    # on a mesh: the query's tower on every rank, each rank's candidates
+    mesh = sparse_v.device_mesh
+    repl = spmd.replicated(mesh.ndim)
+    cand = batch["candidates"]
+    c_pl = tuple(cand.placements)
+    bot = {n: spmd.local_in(w, repl) for n, w in params["bot"].items()}
+    dense_v = mlp_apply(bot, spmd.local_in(batch["query_dense"], repl), act=torch.relu,
+                        final_act=torch.relu)
+    user = dense_v[0] + spmd.local_in(sparse_v, repl)[0].mean(dim=0)
+    return spmd.local_out(cand.to_local() @ user, mesh, c_pl, (cand.shape[0],))

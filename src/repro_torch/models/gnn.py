@@ -32,8 +32,9 @@ Where the reference differs from torch's defaults, the reference wins:
 Segment sums on a card use float atomics, so their last bits vary from
 run to run; no label depends on them.
 
-`sage_fullgraph_halo_loss` (a shard_map over a device mesh) waits for the
-port's collectives (ROADMAP Queue 1 item 7).
+`sage_fullgraph_halo_loss` is GraphSAGE on a device mesh with node rows
+split by a placement: each layer all-gathers only the shards' frontier
+rows (`distributed/gnn_placement.py::halo_batch` builds its inputs).
 """
 from __future__ import annotations
 
@@ -43,11 +44,17 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import spmd
 from repro_torch.models.common import mlp_apply, mlp_init
+from repro_torch.tree import tree_map
 
 
 def _check_index(ids: torch.Tensor, n: int, what: str) -> None:
-    if ids.numel() and bool(((ids < 0) | (ids >= n)).any()):
+    """Raise on an id outside [0, n).  Fake tensors (a dry-run) hold no
+    ids to check."""
+    from torch._subclasses.fake_tensor import is_fake
+
+    if ids.numel() and not is_fake(ids) and bool(((ids < 0) | (ids >= n)).any()):
         raise IndexError(f"{what} holds an index outside [0, {n})")
 
 
@@ -334,6 +341,89 @@ def sage_apply_sampled(params: dict, batch: dict, cfg: GraphSAGEConfig) -> torch
             nxt.append(_unit_rows(nh))
         hs = nxt
     return mlp_apply(params["classify"], hs[0])
+
+
+def _dp_group(mesh, dp_axes):
+    if len(dp_axes) == 1:
+        return mesh.get_group(dp_axes[0])
+    return mesh[tuple(dp_axes)]._flatten().get_group()
+
+
+def _dp_block(x, mesh, dp_axes):
+    """This rank's rows of x: a DTensor's local rows, or a plain tensor
+    (the whole array on every rank) cut to the rank's block along the dp
+    axes (data-major)."""
+    if spmd.is_dtensor(x):
+        return x.to_local()
+    names = mesh.mesh_dim_names
+    coord = mesh.get_coordinate()
+    idx, n = 0, 1
+    for a in dp_axes:
+        size = mesh.size(names.index(a))
+        idx, n = idx * size + coord[names.index(a)], n * size
+    rows = x.shape[0] // n
+    return x[idx * rows:(idx + 1) * rows]
+
+
+def sage_fullgraph_halo_loss(params: dict, batch: dict, cfg: GraphSAGEConfig, mesh,
+                             dp_axes) -> torch.Tensor:
+    """Halo-exchange full-graph GraphSAGE: the paper's payoff on a mesh.
+
+    Node rows are split over the data-parallel ranks by a placement; a cut
+    edge reads its source state from a *frontier* buffer that one tiled
+    all-gather of each shard's own frontier rows fills once per layer.  The
+    bytes a layer moves are Hf x d, the frontier the cut bounds, instead of
+    the N x d gather of the whole node state.
+
+    batch extras vs `sage_loss` (rows split over dp_axes, shard-major):
+      frontier_own (Hf,) int32 — LOCAL row ids each shard contributes
+      edge_src     (E,)  int32 — LOCAL index space [0, N_loc + Hf):
+                                 >= N_loc means frontier slot
+      edge_dst     (E,)  int32 — LOCAL dst row in [0, N_loc)
+    Leaves are DTensors split over dp_axes, or whole arrays (each rank
+    takes its block).  Parameters are replicated (plain tensors or
+    DTensors); their gradients are summed over the ranks, the frontier's
+    reduce-scattered to its owners, and the loss is one value on every
+    rank: the sums of the NLL and of the mask, each all-reduced."""
+    group = _dp_group(mesh, dp_axes)
+    dp_dims = tuple(mesh.mesh_dim_names.index(a) for a in dp_axes)
+
+    def param_in(p):
+        if spmd.is_dtensor(p):
+            return spmd.local_in(p, spmd.replicated(mesh.ndim), dp_dims)
+        return spmd.replicated_in(p, group)
+
+    pr = tree_map(param_in, params)
+    x, fown, esrc, edst, emask, labels, nmask = (
+        _dp_block(batch[k], mesh, dp_axes) for k in
+        ("x", "frontier_own", "edge_src", "edge_dst", "edge_mask", "labels", "node_mask"))
+    n_loc = x.shape[0]
+    hf = fown.shape[0] * _dp_size(mesh, dp_axes)
+    _check_index(fown, n_loc, "frontier_own")
+    _check_index(esrc, n_loc + hf, "edge_src")
+    _check_index(edst, n_loc, "edge_dst")
+    fown, esrc, edst = fown.long(), esrc.long(), edst.long()
+    h = x
+    for i in range(cfg.n_layers):
+        frontier = spmd.all_gather(h[fown], 0, group, autograd=True)   # (Hf, d)
+        hx = torch.cat([h, frontier], dim=0)
+        agg = _segment_mean(hx[esrc], edst, n_loc, emask)
+        h = torch.relu(mlp_apply(pr[f"self_{i}"], h) + mlp_apply(pr[f"nbr_{i}"], agg))
+        h = _unit_rows(h)
+    logits = mlp_apply(pr["classify"], h)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[:, None].long())[:, 0]
+    nll = (logz - gold) * nmask
+    num = spmd.sum_across(nll.sum(), group)
+    den = spmd.sum_across(nmask.sum(), group)
+    return num / torch.clamp(den, min=1.0)
+
+
+def _dp_size(mesh, dp_axes) -> int:
+    n = 1
+    for a in dp_axes:
+        n *= mesh.size(mesh.mesh_dim_names.index(a))
+    return n
 
 
 def sage_loss(params: dict, batch: dict, cfg: GraphSAGEConfig) -> torch.Tensor:

@@ -13,7 +13,10 @@ GNN arch's first full-preset step on the card against the CPU, BuffCut
 placement on the card against the host, and the bag refusing a table
 that requires grad; the MoE layer on the card against the CPU (ties
 included) and rerun bit for bit, and every LM arch's and DLRM's first
-smoke train step on the card against the CPU.
+smoke train step on the card against the CPU; the device mesh on a world
+of one (NCCL): the expert-parallel MoE against the one-device MoE, the
+DLRM serve cell against `dlrm_forward` with the bag launched from the
+cell, and the halo GraphSAGE loss against `sage_loss`.
 
 Every test is marked `cuda` and skips without a card.  The file imports
 neither jax nor the JAX package, so it runs on a machine that has only
@@ -963,3 +966,102 @@ def test_lm_and_dlrm_smoke_first_step_on_card_matches_cpu(arch, card, monkeypatc
         assert eb.launches == before
         out[dev] = (float(m["loss"]), float(m["grad_norm"]))
     np.testing.assert_allclose(out["cuda"], out["cpu"], rtol=1e-4)
+
+
+# ---------------------------------------------------------- the device mesh
+
+@pytest.fixture
+def nccl_world(card):
+    """A world of one on NCCL (FileStore), destroyed after the test."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_world_of_one, make_host_mesh
+
+    init_world_of_one("cuda")
+    try:
+        yield make_host_mesh(1, 1, device="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_mesh_world_of_one_runs_nccl(nccl_world):
+    import torch.distributed as dist
+
+    assert dist.get_backend() == "nccl" and nccl_world.device_type == "cuda"
+
+
+def test_expert_parallel_moe_at_one_rank_equals_one_device_on_card(nccl_world):
+    """At (1, 1) the expert-parallel layer sees every token, so it is the
+    one-device MoE, all-to-alls on NCCL included, bit for bit."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import MeshSharding, lm_sharding_rules
+    from repro_torch.models import transformer as tfm
+    from repro_torch.train.elastic import reshard_state
+
+    mesh = nccl_world
+    cfg = get_arch("moonshot-v1-16b-a3b").smoke_config()
+    params = tfm.init_params(torch.Generator().manual_seed(0), cfg)
+    keys = ("router", "moe_w1", "moe_w2", "moe_w3", "shared_w1", "shared_w2", "shared_w3")
+    layer = {k: params[k][0].cuda() for k in keys}
+    x3 = torch.randn((2, 16, cfg.d_model), generator=torch.Generator().manual_seed(1)).cuda()
+    want = tfm.moe_ffn(x3, layer, cfg)
+    placed = reshard_state({k: params[k].numpy() for k in keys}, lm_sharding_rules(True), mesh)
+    spec = (("data",), "model", None)
+    xd = distribute_tensor(x3, mesh, MeshSharding(mesh, spec).placements(), src_data_rank=None)
+    tfm.set_moe_spmd(mesh, x_spec=spec)
+    try:
+        got = tfm.moe_ffn(xd, {k: v[0] for k, v in placed.items()}, cfg).full_tensor()
+    finally:
+        tfm.set_moe_spmd(None)
+    assert torch.equal(got, want)
+
+
+def test_dlrm_serve_cell_on_card_equals_dlrm_forward(nccl_world):
+    """The serve_p99 cell at smoke size: the bag kernel on the tables'
+    local shard, launched from the cell, and the logits of dlrm_forward."""
+    from repro_torch.launch.steps import SMOKE_DIMS, build_cell, full_value, step_cell
+
+    mesh = nccl_world
+    cfg = dlrm_mlperf.smoke_config()
+    cell = build_cell("dlrm-mlperf", "serve_p99", mesh, cfg_override=cfg,
+                      dims_override=SMOKE_DIMS["recsys"])
+    params = dlrm.dlrm_init(torch.Generator(device="cuda").manual_seed(0), cfg)
+    batch = {k: v.cuda() for k, v in dlrm_mlperf.draw_batch(cfg, 32, seed=1).items()
+             if k != "labels"}
+    eb.launches = 0
+    with torch.no_grad():
+        got = full_value(step_cell(cell, mesh, (params, batch)))
+    assert eb.launches > 0
+    with torch.no_grad():
+        assert torch.equal(got, dlrm.dlrm_forward(params, batch, cfg))
+
+
+def test_halo_loss_on_card_matches_sage_loss(nccl_world):
+    """The halo loss and its gradients at one rank on the card against
+    sage_loss on the assembled graph: the loss at rtol 1e-5, each gradient
+    leaf within 1e-5 of its norm (the segment sums are float atomics
+    here)."""
+    from repro_torch.distributed.gnn_placement import assemble_halo_batch, halo_batch
+    from repro_torch.models import gnn
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    g = grid_mesh_graph(24)
+    rng = np.random.default_rng(0)
+    block = rng.integers(0, 4, g.n)
+    hb = halo_batch(g, block, 1, rng.standard_normal((g.n, 6)).astype(np.float32),
+                    rng.integers(0, 3, g.n).astype(np.int32))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in hb.items()
+             if k not in ("node", "n_shards")}
+    whole = {k: torch.from_numpy(v).cuda() for k, v in assemble_halo_batch(hb).items()}
+    cfg = gnn.GraphSAGEConfig(n_layers=2, d_hidden=16, d_in=6, n_classes=3)
+    params = tree_map(lambda t: t.cuda(), gnn.sage_init(torch.Generator().manual_seed(0), cfg))
+    loss, grads = value_and_grad(
+        lambda p, b: gnn.sage_fullgraph_halo_loss(p, b, cfg, nccl_world, ("data",)),
+        params, batch)
+    want, wgrads = value_and_grad(lambda p, b: gnn.sage_loss(p, b, cfg), params, whole)
+    torch.testing.assert_close(loss, want, rtol=1e-5, atol=0)
+    for a, b in zip(tree_leaves(grads), tree_leaves(wgrads)):   # 1e-5 of each leaf's norm
+        assert float((a - b).norm() / b.norm()) <= 1e-5

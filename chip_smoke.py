@@ -274,7 +274,20 @@ Phases, each of which fails the run (non-zero exit, no result line):
               stablelm-3b train_4k and dlrm-mlperf serve_p99 on a fake 16x16
               mesh: per-rank peak bytes, collective bytes, flops and the
               bottleneck under an H100's published peaks.  Its launches
-              join the kernels line.
+              join the kernels line;
+28. quickstart `examples/quickstart_torch.py` as a user runs it (a child
+              process, no device flag, so on the card): exit 0, its five
+              quality lines, `device=cuda (5 runs)` (every result's
+              provenance) and OK; then its buffcut run at the same SOURCE
+              and OPTS in process (engine auto on cuda: the host V-cycle
+              with the histogram kernel) with labels and cut bit-equal to
+              host `sparse`, histogram launches on the path (added to the
+              kernels line) and the kernel equal to its plain version on
+              the largest input the run gave it; `python -m repro_torch
+              analyze --format json` (exit 0, 0 new); and the cold import
+              of `repro_torch.api` and `repro_torch.api.cli` in fresh
+              interpreters (torch absent from sys.modules after each) beside
+              `import torch`'s.
 
 To stay inside the time limit with phase 27, two repeats that the bench
 should own were cut: phase 16 runs the disk stream at prefetch 2 only (the
@@ -316,6 +329,7 @@ nothing of JAX or of the JAX package `repro`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import importlib
 import inspect
@@ -925,6 +939,30 @@ def full_width_config():
                          ml=MultilevelConfig(engine="torch", device="cuda"))
 
 
+@contextlib.contextmanager
+def recording_histogram(inputs: dict, shapes: list):
+    """Record every `block_histogram` call of the host V-cycle: its (B, W,
+    k) into `shapes`, the first inputs of each shape into `inputs`.  The
+    host V-cycle imports the wrapper from its module at each call
+    (`core/histogram.py::label_histogram_ell`), so the module's attribute
+    is the one to wrap."""
+    import repro_torch.core.multilevel_torch  # noqa: F401  (binds the real wrapper first)
+    from repro_torch.kernels import ell_histogram as eh
+
+    wrapper = eh.block_histogram
+
+    def recording(nbr_blk, nbr_w, k):
+        shapes.append((*nbr_blk.shape, int(k)))
+        inputs.setdefault(shapes[-1], (nbr_blk, nbr_w))
+        return wrapper(nbr_blk, nbr_w, k)
+
+    eh.block_histogram = recording
+    try:
+        yield
+    finally:
+        eh.block_histogram = wrapper
+
+
 def phase_auto(side: int) -> float:
     """The default engine through the driver at the paper's settings, held
     against the host `sparse` engine; returns the kernel's largest error
@@ -932,7 +970,6 @@ def phase_auto(side: int) -> float:
     import numpy as np
     import torch
 
-    import repro_torch.core.histogram as hist
     from repro_torch.core import MultilevelConfig, buffcut_partition
     from repro_torch.graphs import grid_mesh_graph
     from repro_torch.kernels import ell_histogram as eh
@@ -940,22 +977,11 @@ def phase_auto(side: int) -> float:
     g = grid_mesh_graph(side)
     cfg = dataclasses.replace(full_width_config(), ml=MultilevelConfig())
     check(cfg.ml.engine == "auto" and cfg.ml.device == "cuda", "the default engine moved")
-    inputs = {}  # (B, W, k) -> the first inputs of that shape
-    shapes = []
-    wrapper = hist.block_histogram
-
-    def recording(nbr_blk, nbr_w, k):
-        shapes.append((*nbr_blk.shape, int(k)))
-        inputs.setdefault(shapes[-1], (nbr_blk, nbr_w))
-        return wrapper(nbr_blk, nbr_w, k)
-
-    hist.block_histogram = recording
-    try:
+    inputs, shapes = {}, []  # (B, W, k) -> the first inputs of that shape
+    with recording_histogram(inputs, shapes):
         eh.launches = 0
         block, stats = buffcut_partition(g, cfg)
         launches = eh.launches
-    finally:
-        hist.block_histogram = wrapper
     check(launches > 0, "the auto engine launched no ell_histogram kernel")
     host_cfg = dataclasses.replace(cfg, ml=MultilevelConfig(engine="sparse", device="cpu"))
     t0 = time.perf_counter()
@@ -3802,6 +3828,123 @@ def mesh_halo(mesh, graph, block) -> None:
         f"ms (float32); halo_batch built on the host in {t_build:.3f} s")
 
 
+# phase 28: each module's cold import, timed in this many fresh interpreters
+# (torch once: its ~7 s on the card's host is context, not a check)
+QUICKSTART_IMPORTS = {"repro_torch.api": 3, "repro_torch.api.cli": 3, "torch": 1}
+
+
+def port_env() -> dict:
+    """The environment of a child that runs the port from this checkout."""
+    import os
+
+    return {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+
+
+def cold_import_s(module: str) -> tuple[float, bool]:
+    """Seconds to import `module` in a fresh interpreter, and whether torch
+    was loaded after it."""
+    code = ("import sys, time\nt0 = time.perf_counter()\n"
+            f"import {module}\n"
+            "print(time.perf_counter() - t0, 'torch' in sys.modules)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env=port_env(), timeout=120)
+    check(out.returncode == 0, f"importing {module} failed: {out.stderr[-2000:]}")
+    dt, loaded = out.stdout.split()[-2:]
+    return float(dt), loaded == "True"
+
+
+def phase_quickstart() -> dict:
+    """Phase 28: `examples/quickstart_torch.py` on the card as a user runs
+    it, its BuffCut run in process against host `sparse` with the launches
+    counted, the linter's verb, and the cold import of the front door.
+    Returns the kernels' launches of the in-process run."""
+    import importlib.util
+
+    import numpy as np
+    import torch
+
+    from repro_torch.api import partition
+    from repro_torch.kernels import ell_histogram as eh
+
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    qs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(qs)
+
+    # the script as a user runs it: no device flag, so on the card
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, str(ROOT / "examples" / "quickstart_torch.py")],
+                         capture_output=True, text=True, cwd=ROOT, env=port_env(), timeout=600)
+    t_script = time.perf_counter() - t0
+    lines = out.stdout.splitlines()
+    check(out.returncode == 0, f"quickstart_torch.py exited {out.returncode}: "
+                               f"{out.stderr[-3000:]}")
+    check(lines[-2:] == ["device=cuda (5 runs)", "OK"],
+          f"quickstart_torch.py did not end with its device line and OK: {lines[-3:]}")
+    for line in lines:
+        log(f"[quickstart] {line}")
+    log(f"[quickstart] python examples/quickstart_torch.py on the card: exit 0 in "
+        f"{t_script:.1f} s (a fresh process: torch import and kernel load included)")
+
+    # the buffcut run in process: its launches counted, labels against host sparse
+    inputs, shapes = {}, []
+    zero_launches()
+    with recording_histogram(inputs, shapes):
+        t0 = time.perf_counter()
+        card = partition(qs.SOURCE, driver="buffcut", **qs.OPTS)
+        t_card = time.perf_counter() - t0
+    launches = read_launches()
+    t0 = time.perf_counter()
+    host = partition(qs.SOURCE, driver="buffcut", device="cpu", engine="sparse", **qs.OPTS)
+    t_host = time.perf_counter() - t0
+    check(card.provenance["device"] == "cuda" and card.provenance["engine"] == "auto",
+          f"the quickstart's run did not take the card's default: {card.provenance['device']}, "
+          f"{card.provenance['engine']}")
+    check(np.array_equal(card.labels, host.labels),
+          "the quickstart's buffcut labels on the card differ from host sparse's")
+    check(card.cut_ratio == host.cut_ratio, "the quickstart's cut differs from host sparse's")
+    check(launches["ell_histogram"] > 0, "the quickstart's buffcut run launched no "
+                                         "ell_histogram kernel (auto should route to ell)")
+    largest = max(inputs, key=lambda s: s[0] * s[2])
+    blk, wts = inputs[largest]
+    got = eh.block_histogram(blk, wts, largest[2])
+    want = eh.ell_histogram_plain(blk, wts, largest[2])
+    check(torch.equal(got, want), f"ell_histogram differs from its plain version on the "
+                                  f"quickstart's input {largest}")
+    log(f"[quickstart] buffcut at the quickstart's OPTS in process: auto on cuda {t_card:.3f} s, "
+        f"sparse on the host {t_host:.3f} s, labels bit-equal, cut_ratio "
+        f"{card.cut_ratio:.6f}, {card.stats.n_batches} batches; launches {launches}; "
+        f"(B, W, k) per call {sorted(Counter(shapes).items())}; ell_histogram on the largest "
+        f"{largest} equal to its plain version bit for bit")
+
+    # the linter's verb, through `python -m repro_torch` as a user runs it
+    t0 = time.perf_counter()
+    out = subprocess.run([sys.executable, "-m", "repro_torch", "analyze", "--format", "json"],
+                         capture_output=True, text=True, cwd=ROOT, env=port_env(), timeout=300)
+    t_lint = time.perf_counter() - t0
+    check(out.returncode == 0, f"python -m repro_torch analyze exited {out.returncode}: "
+                               f"{out.stdout[-2000:]}{out.stderr[-2000:]}")
+    report = json.loads(out.stdout)
+    check(report["counts"]["new"] == 0, f"the linter found new violations: {report['counts']}")
+    log(f"[quickstart] python -m repro_torch analyze --format json: exit {out.returncode}, "
+        f"counts {report['counts']}, {report['files']} files, {t_lint:.2f} s with the "
+        f"interpreter's start")
+
+    # cold imports: the front door loads no torch
+    for module, repeats in QUICKSTART_IMPORTS.items():
+        times = []
+        for _ in range(repeats):
+            dt, loaded = cold_import_s(module)
+            times.append(dt)
+            if module != "torch":
+                check(not loaded, f"importing {module} loaded torch")
+        log(f"[quickstart] cold `import {module}` in a fresh interpreter: "
+            f"{', '.join(f'{t:.4f}' for t in times)} s"
+            + ("" if module == "torch" else "; torch not in sys.modules after it"))
+    log(f"[quickstart] on {gpu_name_and_limit()}")
+    return launches
+
+
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
@@ -3902,6 +4045,12 @@ def main(argv: list[str] | None = None) -> int:
         entry["launches"] += meshed[name]
     log(f"[kernels] launches of phase 27 (mesh: the decode cell's swa_attention, the DLRM "
         f"cells' embedding_bag), added to the kernels line: {meshed}")
+    quick = timed("quickstart", phase_quickstart)
+    for entry, name in ((hist, "ell_histogram"), (swa, "swa_attention"), (bag, "embedding_bag"),
+                        (fennel, "fennel_gain"), (sweep, "fennel_sweep")):
+        entry["launches"] += quick[name]
+    log(f"[kernels] launches of phase 28 (quickstart: the in-process buffcut run), added to "
+        f"the kernels line: {quick}")
     log(f"[env] total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": [hist, swa, bag, fennel, sweep]}))
     print(gpu_name_and_limit())

@@ -14,5 +14,9 @@ service (`distributed/gnn_placement.py`), the fanout sampler
 training substrate (`train/`, `launch/train.py`).  `repro_torch.kernels` exports the reference's
 four public kernel ops (`block_histogram`, `fennel_choose_batch`,
 `embedding_bag`, `swa_attention_decode`), each a hand-written CUDA kernel
-on the card.  Nothing here imports `jax` or `repro`.
+on the card.  `repro_torch.analysis` is the reference's invariant linter,
+applied to the port (`python -m repro_torch analyze`).  Nothing here
+imports `jax` or `repro`, and the partitioning path (the API and CLI,
+`core/`, `graphs/`, the shard driver, `serve/`, `launch/serve.py`)
+imports torch only where it runs on a card, so importing it loads none.
 """

@@ -6,6 +6,7 @@
     python -m repro_torch serve gen:grid:side=64 -k 8 --device cpu
     python -m repro_torch gen grid -o mesh.bcsr --param side=64
     python -m repro_torch list -v
+    python -m repro_torch analyze --format json
 
 `partition` resolves any source the API accepts (METIS text, packed binary,
 ``gen:`` spec), runs the chosen registry driver, prints a one-line quality
@@ -15,7 +16,9 @@ with no card they fail rather than run on the host.  `serve` keeps the
 partition resident and replays a churn workload through it.  `gen`
 synthesizes an instance family to disk (packed by default, METIS text with
 ``--format metis``), files byte-identical to the reference's.  `list`
-prints the registry.
+prints the registry.  `analyze` runs the invariant linter
+(`repro_torch.analysis`) over the port.  Importing this module, and the
+`list`, `gen` and `analyze` verbs, load no torch.
 """
 from __future__ import annotations
 
@@ -349,6 +352,26 @@ def _cmd_list(args: argparse.Namespace) -> int:
     return 0
 
 
+def _cmd_analyze(args: argparse.Namespace) -> int:
+    # the analyzer is stdlib-only; its exit code is the verb's exit code
+    from repro_torch.analysis.cli import run as analysis_run
+
+    return analysis_run(args)
+
+
+def _add_analyze_parser(sub: "argparse._SubParsersAction") -> None:
+    from repro_torch.analysis.cli import add_arguments
+
+    p = sub.add_parser(
+        "analyze",
+        help="run the repo invariant linter over the port (docs/INVARIANTS.md)",
+        description="AST-based invariant linter: determinism, concurrency "
+        "and IO contracts (rules RPR001-RPR008, read for torch).",
+    )
+    add_arguments(p)
+    p.set_defaults(cmd=_cmd_analyze)
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m repro_torch",
@@ -358,6 +381,7 @@ def build_parser() -> argparse.ArgumentParser:
     _add_partition_parser(sub)
     _add_serve_parser(sub)
     _add_gen_parser(sub)
+    _add_analyze_parser(sub)
     p_list = sub.add_parser("list", help="list registered partitioners")
     p_list.add_argument("-v", "--verbose", action="store_true")
     p_list.set_defaults(cmd=_cmd_list)

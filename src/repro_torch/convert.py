@@ -10,7 +10,7 @@ rank under the family's sharding rules.
 from __future__ import annotations
 
 import numpy as np
-import torch
+import torch  # repro: noqa RPR001 -- weight converter; never on the partitioning path
 
 from repro_torch.core.buffcut import BuffCutConfig
 from repro_torch.graphs.csr import CSRGraph

@@ -18,12 +18,15 @@ best-move selection (`best_label_per_src`)
 """
 from __future__ import annotations
 
+from typing import TYPE_CHECKING
+
 import numpy as np
-import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import CSRGraph
-from repro_torch.kernels.ell_histogram import block_histogram
+
+if TYPE_CHECKING:
+    import torch
 
 # n·L ceiling for the dense-bincount scratch (8 MiB of float64 per 2^20)
 DENSE_KEYSPACE_CAP = 1 << 24
@@ -155,6 +158,10 @@ def label_histogram_ell(
 
     Returns (counts, uniq) with counts[i, j] = summed weight from node i to
     label uniq[j] (float32, the kernel's accumulator type)."""
+    import torch  # deferred: keeps torch off the sparse-only import path
+
+    from repro_torch.kernels.ell_histogram import block_histogram
+
     dev = resolve_device(device)
     labc_node, uniq = compact_labels(labels)
     nbr, wts, mask = g.to_ell_padded()

@@ -64,13 +64,14 @@ def streaming_cut_increment(
     if bnodes.shape[0] == 1:
         # hub fast path: no self loops, so no batch-mate edges
         cross = (nbr_lab >= 0) & (nbr_lab != labels[0])
-        return float(np.sum(w[cross]))
+        return float(np.sum(w[cross]))  # repro: noqa RPR003 -- w cast to f64 above
     in_batch = np.zeros(block.shape[0], dtype=bool)
     in_batch[bnodes] = True
     src_lab = np.repeat(labels, degs)
     cross = (nbr_lab >= 0) & (nbr_lab != src_lab)
     mates = in_batch[nbr]
-    return float(np.sum(w[cross & ~mates]) + 0.5 * np.sum(w[cross & mates]))
+    return float(  # repro: noqa RPR003 -- w cast to f64 above
+        np.sum(w[cross & ~mates]) + 0.5 * np.sum(w[cross & mates]))
 
 
 class IncrementalCut:
@@ -183,8 +184,8 @@ def internal_edge_ratio_adj(
     in_b = np.zeros(n, dtype=bool)
     in_b[bnodes] = True
     w = np.asarray(w, dtype=np.float64)
-    den = float(np.sum(w))
-    num = float(np.sum(w[in_b[nbr]]))
+    den = float(np.sum(w))  # repro: noqa RPR003 -- w cast to f64 above
+    num = float(np.sum(w[in_b[nbr]]))  # repro: noqa RPR003 -- w cast to f64 above
     return num / den if den > 0 else 0.0
 
 

@@ -37,7 +37,7 @@ import threading
 import time
 
 import numpy as np
-import torch
+import torch  # repro: noqa RPR001 -- whole-module torch engine; lazy from multilevel.py
 
 from repro_torch.core.fennel import FennelParams
 from repro_torch.core.multilevel import _ELL_VOLUME_CAP as ELL_VOLUME_CAP

@@ -50,7 +50,6 @@ import threading
 import time
 
 import numpy as np
-import torch
 
 from repro_torch.core.batch_model import build_batch_model_from_adj
 from repro_torch.core._deprecation import warn_legacy
@@ -166,6 +165,8 @@ def _buffcut_partition_pipelined(
     if cfg.ml.engine != "sparse":
         dev = resolve_device(cfg.ml.device)
         if dev.type == "cuda":
+            import torch  # deferred: once a run, keeps torch off the import path
+
             caller_stream = torch.cuda.current_stream(dev)
             launch_ctx = (caller_stream.device, caller_stream)
     blk = max(1, cfg.batch_size)
@@ -281,6 +282,8 @@ def _buffcut_partition_pipelined(
         try:
             with contextlib.ExitStack() as launch_on:
                 if launch_ctx:
+                    import torch
+
                     launch_on.enter_context(torch.cuda.device(launch_ctx[0]))
                     launch_on.enter_context(torch.cuda.stream(launch_ctx[1]))
                 while True:

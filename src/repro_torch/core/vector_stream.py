@@ -23,9 +23,9 @@ from __future__ import annotations
 import dataclasses
 import json
 import time
+from typing import TYPE_CHECKING
 
 import numpy as np
-import torch
 
 from repro_torch.core.batch_model import build_batch_model_from_adj
 from repro_torch.core._deprecation import warn_legacy
@@ -48,6 +48,9 @@ from repro_torch.device import preflight
 from repro_torch.graphs.csr import CSRGraph
 from repro_torch.graphs.stream import NodeStreamBase, as_node_stream
 
+if TYPE_CHECKING:
+    import torch
+
 
 def score_kernel(
     assigned_w: torch.Tensor,
@@ -62,6 +65,8 @@ def score_kernel(
 ) -> torch.Tensor:
     """Dense buffer scores for every node, on the tensors' device; the
     formulas of `core.scores.ScoreSpec.__call__` (anr/cbs/haa/nss)."""
+    import torch  # deferred: no driver calls this, so the driver never imports torch
+
     d_safe = torch.clamp(deg_w, min=1.0)
     anr = assigned_w / d_safe
     if kind == "anr":

@@ -9,10 +9,15 @@ than inside one.
 """
 from __future__ import annotations
 
-import torch
+from typing import TYPE_CHECKING
+
+if TYPE_CHECKING:
+    import torch
 
 
 def resolve_device(name: str | torch.device) -> torch.device:
+    import torch  # deferred: keeps torch off the partitioning path's imports
+
     dev = torch.device(name)
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"repro_torch runs on 'cpu' or 'cuda', got {str(dev)!r}")

@@ -16,8 +16,8 @@ from __future__ import annotations
 
 import math
 
-import torch
-import torch.distributed as dist
+import torch  # repro: noqa RPR001 -- torch-resident module behind PEP-562-lazy distributed/__init__
+import torch.distributed as dist  # repro: noqa RPR001 -- torch-resident module
 
 from repro_torch.tree import tree_leaves, tree_map, tree_unflatten_like
 

@@ -11,8 +11,8 @@ agree bit for bit on one rank.
 """
 from __future__ import annotations
 
-import torch
-import torch.distributed as dist
+import torch  # repro: noqa RPR001 -- torch-resident module behind PEP-562-lazy distributed/__init__
+import torch.distributed as dist  # repro: noqa RPR001 -- torch-resident module
 
 
 def collective_matmul_allgather(x_local: torch.Tensor, w: torch.Tensor,

@@ -68,7 +68,6 @@ import traceback
 import warnings
 
 import numpy as np
-import torch
 
 from repro_torch.core.buffcut import BuffCutConfig, StreamStats, _buffcut_partition
 from repro_torch.device import preflight
@@ -438,6 +437,8 @@ class ShardPool:
             turn.take()
             with contextlib.ExitStack() as launch_on:
                 if self.launch_ctx:
+                    import torch  # once a worker; only thread workers on a card
+
                     launch_on.enter_context(torch.cuda.device(self.launch_ctx[0]))
                     launch_on.enter_context(torch.cuda.stream(self.launch_ctx[1]))
                 shard = self.factories[w]()
@@ -676,8 +677,10 @@ def _launch_context(cfg: BuffCutConfig, backend: str) -> tuple:
     ``(device, stream)`` the thread workers launch on (empty for the
     host).  Refuses the process backend, before anything forks, for every
     configuration whose V-cycle is not the host's numpy code: the card's
-    context and torch's CPU thread pool do not survive fork."""
-    on_card = torch.device(cfg.ml.device).type == "cuda"
+    context and torch's CPU thread pool do not survive fork.  Nothing here
+    imports torch before the refusal or on the `sparse` path, so a process
+    backend forks from a parent that has not loaded it."""
+    on_card = str(cfg.ml.device).startswith("cuda")
     host_numpy = cfg.ml.engine == "sparse" or (cfg.ml.engine == "auto" and not on_card)
     if backend == "process" and not host_numpy:
         raise ValueError(
@@ -691,6 +694,8 @@ def _launch_context(cfg: BuffCutConfig, backend: str) -> tuple:
     dev = preflight(cfg.ml.device)
     if dev.type != "cuda":
         return ()
+    import torch
+
     caller = torch.cuda.current_stream(dev)
     return (caller.device, caller)
 

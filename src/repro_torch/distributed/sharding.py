@@ -26,8 +26,8 @@ from __future__ import annotations
 import dataclasses
 import re
 
-from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import Replicate, Shard
+from torch.distributed.device_mesh import DeviceMesh  # repro: noqa RPR001 -- torch-resident module, lazy
+from torch.distributed.tensor import Replicate, Shard  # repro: noqa RPR001 -- torch-resident module
 
 from repro_torch.tree import tree_flatten_with_path, tree_unflatten_like
 

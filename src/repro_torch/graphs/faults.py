@@ -131,4 +131,4 @@ class FaultyOpener:
         if idx in s.fail_opens:
             s.injected["failed_open"] += 1
             raise OSError(s.errno_code, f"injected transient error (open #{idx})")
-        return FaultyFile(open(path, mode, *args, **kwargs), s)
+        return FaultyFile(open(path, mode, *args, **kwargs), s)  # repro: noqa RPR008 -- this IS the injection opener the rule routes reads through

@@ -992,7 +992,7 @@ def permute_to_disk(
     n_shards = max(1, (n + span - 1) // span)
     # scratch spill files, tmp-named and deleted in the finally below
     shard_paths = [f"{out_path}.tmp.shard{s}" for s in range(n_shards)]
-    shard_files = [open(p, "wb") for p in shard_paths]
+    shard_files = [open(p, "wb") for p in shard_paths]  # repro: noqa RPR005 -- tmp-named scratch spills, deleted in the finally below
     try:
         for v, nbrs, wts, node_w in stream:
             nv = int(inv[v])

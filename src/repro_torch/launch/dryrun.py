@@ -26,8 +26,8 @@ import sys
 import time
 import traceback
 
-import torch
-import torch.distributed as dist
+import torch  # repro: noqa RPR001 -- dry-run entry point; traces need torch up front
+import torch.distributed as dist  # repro: noqa RPR001 -- dry-run entry point
 
 from repro_torch.configs import ARCHS, get_arch
 from repro_torch.launch.mesh import make_host_mesh, make_production_mesh

@@ -25,13 +25,17 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
+from typing import TYPE_CHECKING
 
 import numpy as np
-import torch
 
 from repro_torch.device import preflight
-from repro_torch.models import transformer as tfm
-from repro_torch.models.dlrm import DLRMConfig, dlrm_forward, dlrm_init
+
+if TYPE_CHECKING:
+    import torch
+
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.dlrm import DLRMConfig
 
 
 @dataclasses.dataclass
@@ -49,6 +53,8 @@ class ServeResult:
 
 
 def _sync(device: torch.device) -> None:
+    import torch
+
     if device.type == "cuda":
         torch.cuda.synchronize(device)
 
@@ -61,6 +67,11 @@ def serve_lm(cfg: tfm.TransformerConfig, batch: int = 4, prompt_len: int = 32,
     seeded with 0 on the device; the prompts are the reference's numpy draw
     from seed 0.  The device is checked, and the kernels built and loaded,
     before the first request."""
+    # the LM and DLRM stacks load here, so `--arch partition` never pays them
+    import torch
+
+    from repro_torch.models import transformer as tfm
+
     dev = preflight(device)
     if params is None:
         params = tfm.init_params(torch.Generator(device=dev).manual_seed(0), cfg)
@@ -114,6 +125,10 @@ def serve_dlrm(cfg: DLRMConfig, batch: dict, iters: int = 10, *,
     includes its jit compile)."""
     if iters < 1:
         raise ValueError(f"iters must be >= 1, got {iters}")
+    import torch
+
+    from repro_torch.models.dlrm import dlrm_forward, dlrm_init
+
     dev = preflight(device)
     if params is None:
         params = dlrm_init(torch.Generator(device=dev).manual_seed(0), cfg)

@@ -32,8 +32,8 @@ from __future__ import annotations
 import dataclasses
 import sys
 
-import torch
-from torch.utils._python_dispatch import TorchDispatchMode
+import torch  # repro: noqa RPR001 -- step analysis; dry-run only
+from torch.utils._python_dispatch import TorchDispatchMode  # repro: noqa RPR001 -- base class at def
 
 PEAK_FLOPS = 989e12   # bf16 dense flop/s, one H100 SXM (NVIDIA data sheet, 700 W)
 HBM_BW = 3.35e12      # bytes/s of HBM3, one H100 SXM (NVIDIA data sheet)

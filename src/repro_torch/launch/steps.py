@@ -27,9 +27,9 @@ import contextlib
 import dataclasses
 import math
 
-import torch
-from torch.distributed.device_mesh import DeviceMesh
-from torch.distributed.tensor import DTensor, distribute_tensor
+import torch  # repro: noqa RPR001 -- train-step module; only reached from train-arch entry points
+from torch.distributed.device_mesh import DeviceMesh  # repro: noqa RPR001 -- train-step module
+from torch.distributed.tensor import DTensor, distribute_tensor  # repro: noqa RPR001 -- step module
 
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ShapeDef

@@ -21,7 +21,7 @@ import os
 import tempfile
 import time
 
-import torch
+import torch  # repro: noqa RPR001 -- train entry point; torch is its purpose
 
 from repro_torch.configs import get_arch
 from repro_torch.device import resolve_device

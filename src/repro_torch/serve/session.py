@@ -39,7 +39,6 @@ import threading
 from concurrent.futures import Future
 
 import numpy as np
-import torch
 
 from repro_torch.serve.service import PartitionService
 
@@ -89,7 +88,9 @@ class ServeSession:
         # the creator's device and current stream, for the worker's launches
         self._launch_ctx: tuple = ()
         ml = service.cfg.ml
-        if ml.engine != "sparse" and torch.device(ml.device).type == "cuda":
+        if ml.engine != "sparse" and str(ml.device).startswith("cuda"):
+            import torch  # once a session: keeps torch off the import path
+
             caller = torch.cuda.current_stream(torch.device(ml.device))
             self._launch_ctx = (caller.device, caller)
         self._thread = threading.Thread(target=self._run, name=name, daemon=True)
@@ -196,6 +197,8 @@ class ServeSession:
         try:
             with contextlib.ExitStack() as launch_on:
                 if self._launch_ctx:
+                    import torch
+
                     launch_on.enter_context(torch.cuda.device(self._launch_ctx[0]))
                     launch_on.enter_context(torch.cuda.stream(self._launch_ctx[1]))
                 self._serve()

@@ -18,6 +18,7 @@ import threading
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.graphs.csr import CSRGraph
 
 # per-thread reusable global->local map: one O(n) fill per driver run; the
@@ -50,19 +51,15 @@ def build_batch_model(
 ) -> BatchModel:
     """Graph-backed wrapper: gather the batch adjacency from the CSR, then
     defer to the adjacency-based builder the driver uses."""
-    batch = np.asarray(batch, dtype=np.int64)
-    degs = (g.indptr[batch + 1] - g.indptr[batch]).astype(np.int64)
-    gather = g.slice_indices(batch)
-    return build_batch_model_from_adj(
-        g.n,
-        batch,
-        degs,
-        g.indices[gather].astype(np.int64),
-        g.edge_w[gather].astype(np.float64),
-        g.node_w[batch],
-        block,
-        k,
-    )
+    with tracing.span("batch_model.run"):
+        with tracing.span("batch_model.gather"):
+            batch = np.asarray(batch, dtype=np.int64)
+            degs = (g.indptr[batch + 1] - g.indptr[batch]).astype(np.int64)
+            gather = g.slice_indices(batch)
+            dst_g = g.indices[gather].astype(np.int64)
+            w = g.edge_w[gather].astype(np.float64)
+            node_w = g.node_w[batch]
+        return build_batch_model_from_adj(g.n, batch, degs, dst_g, w, node_w, block, k)
 
 
 def build_batch_model_from_adj(
@@ -77,37 +74,42 @@ def build_batch_model_from_adj(
 ) -> BatchModel:
     """Build the model graph from the batch's *retained* adjacency, so no
     CSR of the full graph is required."""
-    batch = np.asarray(batch, dtype=np.int64)
-    b = batch.shape[0]
-    local_of = _local_scratch(n)
-    try:
-        local_of[batch] = np.arange(b)
-        dst_l = local_of[dst_g]
-    finally:
-        local_of[batch] = -1
-    src_l = np.repeat(np.arange(b, dtype=np.int64), degs)
+    with tracing.span("batch_model.gather"):
+        batch = np.asarray(batch, dtype=np.int64)
+        b = batch.shape[0]
+        local_of = _local_scratch(n)
+        try:
+            local_of[batch] = np.arange(b)
+            dst_l = local_of[dst_g]
+        finally:
+            local_of[batch] = -1
+        src_l = np.repeat(np.arange(b, dtype=np.int64), degs)
 
-    internal = dst_l >= 0
-    int_src, int_dst, int_w = src_l[internal], dst_l[internal], w[internal]
-    keep = int_src < int_dst  # one canonical direction; from_edges symmetrizes
-    int_edges = np.stack([int_src[keep], int_dst[keep]], axis=1)
-    int_w = int_w[keep]
+        internal = dst_l >= 0
+        int_src, int_dst, int_w = src_l[internal], dst_l[internal], w[internal]
+        keep = int_src < int_dst  # one canonical direction; from_edges symmetrizes
+        int_edges = np.stack([int_src[keep], int_dst[keep]], axis=1)
+        int_w = int_w[keep]
 
     # aux edges: per-(node, block) weight through one composite-key bincount
-    ext = ~internal
-    dst_blk = block[dst_g[ext]]
-    assigned = dst_blk >= 0
-    key = src_l[ext][assigned] * np.int64(k) + dst_blk[assigned]
-    aux_w = np.bincount(key, weights=w[ext][assigned], minlength=b * k)
-    aux_w = aux_w.reshape(b, k)
-    ai, ab = np.nonzero(aux_w)
-    aux_edges = np.stack([ai, b + ab], axis=1)
-    aux_wts = aux_w[ai, ab].astype(np.float32)
+    with tracing.span("batch_model.aux"):
+        ext = ~internal
+        dst_blk = block[dst_g[ext]]
+        assigned = dst_blk >= 0
+        key = src_l[ext][assigned] * np.int64(k) + dst_blk[assigned]
+        aux_w = np.bincount(key, weights=w[ext][assigned], minlength=b * k)
+        aux_w = aux_w.reshape(b, k)
+        ai, ab = np.nonzero(aux_w)
+        aux_edges = np.stack([ai, b + ab], axis=1)
+        aux_wts = aux_w[ai, ab].astype(np.float32)
 
-    edges = np.concatenate([int_edges, aux_edges], axis=0) if b else np.empty((0, 2), dtype=np.int64)
-    wts = np.concatenate([int_w, aux_wts], axis=0)
-    node_w = np.concatenate([np.asarray(node_w_batch, dtype=np.float32), np.zeros(k, dtype=np.float32)])
-    model = CSRGraph.from_edges(b + k, edges, edge_weights=wts, node_weights=node_w)
+    with tracing.span("batch_model.csr"):
+        edges = (np.concatenate([int_edges, aux_edges], axis=0) if b
+                 else np.empty((0, 2), dtype=np.int64))
+        wts = np.concatenate([int_w, aux_wts], axis=0)
+        node_w = np.concatenate([np.asarray(node_w_batch, dtype=np.float32),
+                                 np.zeros(k, dtype=np.float32)])
+        model = CSRGraph.from_edges(b + k, edges, edge_weights=wts, node_weights=node_w)
 
     pinned = np.full(b + k, -1, dtype=np.int64)
     pinned[b:] = np.arange(k)

@@ -14,6 +14,7 @@ import time
 
 import numpy as np
 
+from repro_torch import tracing
 from repro_torch.core._deprecation import require_csr, warn_legacy
 from repro_torch.core.batch_model import build_batch_model
 from repro_torch.core.buffcut import BuffCutConfig, StreamStats
@@ -52,18 +53,19 @@ def _heistream_partition(
     stats = StreamStats()
     t0 = time.perf_counter()
     for start in range(0, g.n, cfg.batch_size):
-        bnodes = np.arange(start, min(start + cfg.batch_size, g.n), dtype=np.int64)
-        model = build_batch_model(g, bnodes, block, cfg.k)
-        t_ml = time.perf_counter()
-        labels = multilevel_partition(model.graph, model.pinned_block, p, loads, cfg.ml)
-        stats.ml_time_s += time.perf_counter() - t_ml
-        block[bnodes] = labels[: bnodes.shape[0]]
-        np.add.at(loads, labels[: bnodes.shape[0]], g.node_w[bnodes].astype(np.float64))
-        stats.n_batches += 1
-        if cfg.collect_stats:
-            stats.ier_per_batch.append(internal_edge_ratio(g, bnodes))
-            stats.peak_mem_items = max(
-                stats.peak_mem_items, len(bnodes) + model.graph.indices.shape[0]
-            )
+        with tracing.span("driver.batch"):
+            bnodes = np.arange(start, min(start + cfg.batch_size, g.n), dtype=np.int64)
+            model = build_batch_model(g, bnodes, block, cfg.k)
+            t_ml = time.perf_counter()
+            labels = multilevel_partition(model.graph, model.pinned_block, p, loads, cfg.ml)
+            stats.ml_time_s += time.perf_counter() - t_ml
+            block[bnodes] = labels[: bnodes.shape[0]]
+            np.add.at(loads, labels[: bnodes.shape[0]], g.node_w[bnodes].astype(np.float64))
+            stats.n_batches += 1
+            if cfg.collect_stats:
+                stats.ier_per_batch.append(internal_edge_ratio(g, bnodes))
+                stats.peak_mem_items = max(
+                    stats.peak_mem_items, len(bnodes) + model.graph.indices.shape[0]
+                )
     stats.runtime_s = time.perf_counter() - t0
     return block, stats

@@ -39,6 +39,7 @@ import time
 import numpy as np
 import torch  # repro: noqa RPR001 -- whole-module torch engine; lazy from multilevel.py
 
+from repro_torch import tracing
 from repro_torch.core.fennel import FennelParams
 from repro_torch.core.multilevel import _ELL_VOLUME_CAP as ELL_VOLUME_CAP
 from repro_torch.core.multilevel import _ELL_WIDTH_CAP as ELL_WIDTH_CAP
@@ -475,43 +476,35 @@ def multilevel_partition_torch(
 ) -> np.ndarray:
     """Drop-in `multilevel_partition` with the V-cycle resident on
     `cfg.device`.  `cfg` is a MultilevelConfig (not imported, to avoid a
-    module cycle with multilevel.py)."""
+    module cycle with multilevel.py).  Each stage is a `vcycle.*` span of
+    `repro_torch.tracing`."""
+    with tracing.span("vcycle.run"):
+        return _vcycle(g, pinned, p, loads_base, cfg)
+
+
+def _sync_int(t: torch.Tensor) -> int:
+    """int(t) of a 0-d device tensor: the host waits there for the card's
+    queue, so it is a `vcycle.sync` span."""
+    with tracing.span("vcycle.sync"):
+        return int(t)
+
+
+def _vcycle(g: CSRGraph, pinned: np.ndarray, p: FennelParams, loads_base: np.ndarray,
+            cfg) -> np.ndarray:
     dev = resolve_device(cfg.device)
     on_card = dev.type == "cuda"
 
     def sync() -> None:
         if on_card:
-            torch.cuda.synchronize(dev)
+            with tracing.span("vcycle.sync"):
+                torch.cuda.synchronize(dev)
 
     def to_dev(a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-
-    n = g.n
-    # floored at the block count: refine's capacity vector and accept's
-    # target domain live in node-padded arrays
-    n_pad = bucket_size(max(n, p.k))
-    # edge bucket floored at 8·n_pad (capped) so batch-to-batch edge-count
-    # noise maps onto one shape
-    e_pad = bucket_size(int(g.indices.size), minimum=min(8 * n_pad, 2048))
-    src_h, dst_h, w_h = g.to_coo_padded(n_pad, e_pad)
-    node_w_h = np.zeros(n_pad, dtype=np.float64)
-    node_w_h[:n] = g.node_w
-    pin_h = np.full(n_pad, -2, dtype=np.int64)
-    pin_h[:n] = pinned
-    esrc, edst, ew = to_dev(src_h), to_dev(dst_h), to_dev(w_h)
-    node_w, pin = to_dev(node_w_h), to_dev(pin_h)
-
-    free_total = pinned < 0
-    n_free = int(free_total.sum())
-    total_free_w = float(g.node_w[free_total].astype(np.float64).sum())
-    max_cluster_w = max(total_free_w / max(2 * p.k, 16),
-                        float(g.node_w.max(initial=1.0)))
-
-    # level 0 may use the ELL tiles packed once per batch; free-node
-    # degrees bound the width (pinned aux rows never move, so their
-    # truncation is harmless)
-    free_deg = int(np.max(np.diff(g.indptr)[free_total], initial=1))
-    w_pad = bucket_size(free_deg, minimum=8)
+        # a pageable copy, which waits for the card's queue as well: counted
+        # in bytes, not as a `vcycle.sync`
+        a = np.ascontiguousarray(a)
+        tracing.add("h2d_bytes", a.nbytes)
+        return torch.from_numpy(a).to(dev)
 
     autotune = bool(cfg.agg_autotune)
 
@@ -543,14 +536,42 @@ def multilevel_partition_torch(
         _TUNER.record(key, kw["mode"], time.perf_counter() - t0)
         return out
 
-    dummy_nbr = torch.zeros((1, 8), dtype=torch.int64, device=dev)
-    dummy_wts = torch.zeros((1, 8), dtype=torch.float32, device=dev)
-    if "ell" in (cluster_mode(0, n_pad)[0], refine_mode(0, n_pad)[0]):
-        nbr_h, wts_h, _ = g.to_ell_padded(
-            np.arange(n, dtype=np.int64), row_bucket=n_pad, width_bucket=w_pad)
-        nbr, wts = to_dev(nbr_h.astype(np.int64)), to_dev(wts_h)
-    else:
-        nbr, wts = dummy_nbr, dummy_wts
+    with tracing.span("vcycle.pack"):
+        n = g.n
+        # floored at the block count: refine's capacity vector and accept's
+        # target domain live in node-padded arrays
+        n_pad = bucket_size(max(n, p.k))
+        # edge bucket floored at 8·n_pad (capped) so batch-to-batch edge-count
+        # noise maps onto one shape
+        e_pad = bucket_size(int(g.indices.size), minimum=min(8 * n_pad, 2048))
+        src_h, dst_h, w_h = g.to_coo_padded(n_pad, e_pad)
+        node_w_h = np.zeros(n_pad, dtype=np.float64)
+        node_w_h[:n] = g.node_w
+        pin_h = np.full(n_pad, -2, dtype=np.int64)
+        pin_h[:n] = pinned
+        esrc, edst, ew = to_dev(src_h), to_dev(dst_h), to_dev(w_h)
+        node_w, pin = to_dev(node_w_h), to_dev(pin_h)
+
+        free_total = pinned < 0
+        n_free = int(free_total.sum())
+        total_free_w = float(g.node_w[free_total].astype(np.float64).sum())
+        max_cluster_w = max(total_free_w / max(2 * p.k, 16),
+                            float(g.node_w.max(initial=1.0)))
+
+        # level 0 may use the ELL tiles packed once per batch; free-node
+        # degrees bound the width (pinned aux rows never move, so their
+        # truncation is harmless)
+        free_deg = int(np.max(np.diff(g.indptr)[free_total], initial=1))
+        w_pad = bucket_size(free_deg, minimum=8)
+
+        dummy_nbr = torch.zeros((1, 8), dtype=torch.int64, device=dev)
+        dummy_wts = torch.zeros((1, 8), dtype=torch.float32, device=dev)
+        if "ell" in (cluster_mode(0, n_pad)[0], refine_mode(0, n_pad)[0]):
+            nbr_h, wts_h, _ = g.to_ell_padded(
+                np.arange(n, dtype=np.int64), row_bucket=n_pad, width_bucket=w_pad)
+            nbr, wts = to_dev(nbr_h.astype(np.int64)), to_dev(wts_h)
+        else:
+            nbr, wts = dummy_nbr, dummy_wts
 
     def tiles(level: int):
         return (nbr, wts) if level == 0 else (dummy_nbr, dummy_wts)
@@ -564,59 +585,67 @@ def multilevel_partition_torch(
     for _ in range(cfg.max_levels):
         if cur_free <= cfg.coarsen_target:
             break
-        c_mode, c_key = cluster_mode(level, cur_np)
-        lvl_nbr, lvl_wts = tiles(level)
-        cluster = timed(c_key, _lp_cluster,
-                        cur[0], cur[1], cur[2], lvl_nbr, lvl_wts, cur[3], cur[4],
-                        cur_n, max_cluster_w, iters=cfg.lp_iters, mode=c_mode)
-        es2, ed2, ew2, cw2, cpin2, node_map, nc_dev, ne_dev = _contract(
-            cur[0], cur[1], cur[2], cluster, cur[3], cur[4], cur_n)
-        nc = int(nc_dev)
-        if nc >= cfg.min_shrink * cur_n:
-            break
-        levels.append((cur, cur_n, node_map, level))
-        # re-bucket: coarse levels shrink geometrically, so slicing the
-        # front-compacted buffers keeps per-level cost shrinking with them.
-        # Old sentinels (= old n_pad) stay recognizable: >= the new pad.
-        new_np = max(bucket_size(max(nc, p.k)), 64)
-        new_ep = bucket_size(int(ne_dev), minimum=min(8 * new_np, 2048))
-        new_ep = min(new_ep, cur_ep)
-        es2, ed2, ew2 = es2[:new_ep], ed2[:new_ep], ew2[:new_ep]
-        cw2, cpin2 = cw2[:new_np], cpin2[:new_np]
-        cur = (es2, ed2, ew2, cw2, cpin2)
-        cur_n = nc
-        cur_np, cur_ep = new_np, new_ep
-        cur_free = int(((cpin2 == -1) & (torch.arange(cur_np, device=dev) < nc)).sum())
-        level += 1
+        with tracing.span("vcycle.coarsen"):
+            c_mode, c_key = cluster_mode(level, cur_np)
+            lvl_nbr, lvl_wts = tiles(level)
+            cluster = timed(c_key, _lp_cluster,
+                            cur[0], cur[1], cur[2], lvl_nbr, lvl_wts, cur[3], cur[4],
+                            cur_n, max_cluster_w, iters=cfg.lp_iters, mode=c_mode)
+            es2, ed2, ew2, cw2, cpin2, node_map, nc_dev, ne_dev = _contract(
+                cur[0], cur[1], cur[2], cluster, cur[3], cur[4], cur_n)
+            nc = _sync_int(nc_dev)
+            if nc >= cfg.min_shrink * cur_n:
+                break
+            levels.append((cur, cur_n, node_map, level))
+            # re-bucket: coarse levels shrink geometrically, so slicing the
+            # front-compacted buffers keeps per-level cost shrinking with them.
+            # Old sentinels (= old n_pad) stay recognizable: >= the new pad.
+            new_np = max(bucket_size(max(nc, p.k)), 64)
+            new_ep = bucket_size(_sync_int(ne_dev), minimum=min(8 * new_np, 2048))
+            new_ep = min(new_ep, cur_ep)
+            es2, ed2, ew2 = es2[:new_ep], ed2[:new_ep], ew2[:new_ep]
+            cw2, cpin2 = cw2[:new_np], cpin2[:new_np]
+            cur = (es2, ed2, ew2, cw2, cpin2)
+            cur_n = nc
+            cur_np, cur_ep = new_np, new_ep
+            cur_free = _sync_int(((cpin2 == -1) & (torch.arange(cur_np, device=dev) < nc)).sum())
+            level += 1
 
     # ---- initial partition on the coarsest level
-    # w_c covers FREE nodes only (fennel never slices a pinned row)
-    if level == 0:
-        max_deg = free_deg
-    else:
-        cnt = torch.bincount(cur[0].clamp(max=cur_np), minlength=cur_np + 1)
-        free_c = (cur[4] == -1) & (torch.arange(cur_np, device=dev) < cur_n)
-        max_deg = max(int(torch.where(free_c, cnt[:cur_np], 0).max()), 1)
-    w_c = min(bucket_size(max_deg, minimum=64), cur_ep)
-    labels, loads = _initial_fennel(
-        cur[0], cur[1], cur[2], cur[3], cur[4], cur_n, cur_free,
-        to_dev(np.asarray(loads_base, dtype=np.float64)),
-        p.alpha, p.gamma, p.cap, w_c=w_c)
-    r_mode, r_key = refine_mode(level, cur_np)
-    lvl_nbr, lvl_wts = tiles(level)
-    labels, loads = timed(r_key, _lp_refine,
-                          cur[0], cur[1], cur[2], lvl_nbr, lvl_wts, cur[3], cur[4], cur_n,
-                          labels, loads, p.cap, rounds=cfg.refine_rounds, mode=r_mode)
+    with tracing.span("vcycle.initial"):
+        # w_c covers FREE nodes only (fennel never slices a pinned row)
+        if level == 0:
+            max_deg = free_deg
+        else:
+            # on a card bincount reads its input's min and max on the host
+            with tracing.span("vcycle.sync"):
+                cnt = torch.bincount(cur[0].clamp(max=cur_np), minlength=cur_np + 1)
+            free_c = (cur[4] == -1) & (torch.arange(cur_np, device=dev) < cur_n)
+            max_deg = max(_sync_int(torch.where(free_c, cnt[:cur_np], 0).max()), 1)
+        w_c = min(bucket_size(max_deg, minimum=64), cur_ep)
+        labels, loads = _initial_fennel(
+            cur[0], cur[1], cur[2], cur[3], cur[4], cur_n, cur_free,
+            to_dev(np.asarray(loads_base, dtype=np.float64)),
+            p.alpha, p.gamma, p.cap, w_c=w_c)
+    with tracing.span("vcycle.refine"):
+        r_mode, r_key = refine_mode(level, cur_np)
+        lvl_nbr, lvl_wts = tiles(level)
+        labels, loads = timed(r_key, _lp_refine,
+                              cur[0], cur[1], cur[2], lvl_nbr, lvl_wts, cur[3], cur[4],
+                              cur_n, labels, loads, p.cap, rounds=cfg.refine_rounds,
+                              mode=r_mode)
 
     # ---- uncoarsen + refine
     for fine, fine_n, node_map, lvl in reversed(levels):
-        labels = _project(labels, node_map, fine[4])
-        r_mode, r_key = refine_mode(lvl, fine[3].shape[0])
-        lvl_nbr, lvl_wts = tiles(lvl)
-        labels, loads = timed(r_key, _lp_refine,
-                              fine[0], fine[1], fine[2], lvl_nbr, lvl_wts, fine[3], fine[4],
-                              fine_n, labels, loads, p.cap, rounds=cfg.refine_rounds,
-                              mode=r_mode)
+        with tracing.span("vcycle.refine"):
+            labels = _project(labels, node_map, fine[4])
+            r_mode, r_key = refine_mode(lvl, fine[3].shape[0])
+            lvl_nbr, lvl_wts = tiles(lvl)
+            labels, loads = timed(r_key, _lp_refine,
+                                  fine[0], fine[1], fine[2], lvl_nbr, lvl_wts, fine[3],
+                                  fine[4], fine_n, labels, loads, p.cap,
+                                  rounds=cfg.refine_rounds, mode=r_mode)
 
     # the single device->host transfer of the batch assignment
-    return labels[:n].cpu().numpy()
+    with tracing.span("vcycle.fetch"), tracing.span("vcycle.sync"):
+        return labels[:n].cpu().numpy()

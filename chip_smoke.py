@@ -20,7 +20,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
               call computing the same function: the histogram at
               (65536, 8, 32) and (4096, 64, 4096) beside scatter_add_, SWA
               at the serve shape warm in L2 and with L2 flushed, and at
-              decode_32k, beside scaled_dot_product_attention;
+              decode_32k, beside scaled_dot_product_attention; csr_pack at
+              the pack shapes recorded from the three cells' jobs, equal to
+              its plain version and the host pack, beside its byte bound
+              (its launches, one a device V-cycle on a card, are checked in
+              every phase that counts V-cycles and join the kernels line);
 3. parity     the device V-cycle (engine "torch" on cuda) against the
               port's host `sparse` engine on batch models of a mesh and an
               R-MAT graph in every forced aggregation mode, a whole driver
@@ -309,7 +313,9 @@ Profiler traces late in a long run can come back incomplete; no check
 rests on them, and the rows of such a run are logged as not measured.
 
 `--kernels-only` builds and runs only the timings of the fennel_gain kernel
-(phase 10's) and of the initial sweep on its path (phase 6's stage split,
+(phase 10's), of csr_pack at the cells' recorded pack shapes (beside its
+byte bound, and the host pack with pageable copies against the V-cycle's
+compact upload with the kernel), and of the initial sweep on its path (phase 6's stage split,
 then phase 13's times and counters), the swa_attention wrapper's host time
 per call at the serve shape and decode_32k, fennel_gain at k = 65,536 and
 swa_attention's general paths timed beside their bounds; it prints no
@@ -831,6 +837,162 @@ def swa_general_time() -> None:
     torch.cuda.empty_cache()
 
 
+# the cells' level-0 packs, as recorded batch by batch from one job of each
+# cell on the card (seed 2246822519): (name, n, e, aux rows, aux edges,
+# largest free degree, degree law, n_pad, e_pad, w_pad).  A batch model's
+# rows are the batch's 32,768 free nodes, then one pinned aux row a block;
+# w_pad is None where level 0 takes no tiles.  rgg_2e20 takes 32-wide
+# tiles in 31 of 32 batches (64 in one); rmat_2e19's power-law batches take
+# 256-wide tiles (5 of 16), 64-wide (5), or none where the free rows pass
+# the volume cap (6, the first one 2^21 edge slots); the random order's
+# keep few internal edges and take 8- or 16-wide tiles.  Each shape is the
+# largest batch of its (e_pad, w_pad).
+PACK_SHAPES = [
+    ("rgg.w32", 32800, 428112, 32, 1790, 32, "poisson", 65536, 1 << 19, 32),
+    ("rgg.w64", 32800, 421462, 32, 1656, 33, "poisson", 65536, 1 << 19, 64),
+    ("rmat.w256", 32800, 248512, 32, 117522, 252, "pareto", 65536, 1 << 18, 256),
+    ("rmat.w64", 32800, 126038, 32, 62468, 49, "pareto", 65536, 1 << 17, 64),
+    ("rmat.none", 32800, 497422, 32, 174953, 1681, "pareto", 65536, 1 << 19, None),
+    ("rmat.none.first", 32800, 1410450, 0, 0, 7905, "pareto", 65536, 1 << 21, None),
+    ("random.w16", 32800, 188046, 32, 87323, 9, "poisson", 65536, 1 << 18, 16),
+]
+
+
+def pack_inputs(n: int, e: int, aux: int, aux_e: int, cap: int, law: str, seed: int = 7):
+    """(graph, pinned): a CSR of `n` rows and `e` directed edges shaped as
+    a batch model: n - aux free rows holding e - aux_e edges, degrees drawn
+    by `law` ("poisson" or "pareto") and cut at `cap`, then `aux` pinned
+    rows sharing aux_e; random neighbours, integer weights."""
+    import numpy as np
+
+    from repro_torch.graphs.csr import CSRGraph
+
+    rng = np.random.default_rng(seed)
+
+    def degrees(rows: int, total: int, cap: int, law: str):
+        if rows == 0:
+            return np.zeros(0, dtype=np.int64)
+        if law == "poisson":
+            w = rng.poisson(total / rows, rows).astype(np.float64)
+        else:
+            w = rng.pareto(1.1, rows) + 1.0
+        deg = np.minimum(np.floor(w / max(w.sum(), 1.0) * total), cap).astype(np.int64)
+        while deg.sum() < total:  # the remainder, a slot at a time, to rows under the cap
+            room = np.flatnonzero(deg < cap)
+            check(room.size > 0, f"{rows} rows of degree <= {cap} cannot hold {total} edges")
+            np.add.at(deg, rng.choice(room, int(min(total - deg.sum(), room.size))), 1)
+            deg = np.minimum(deg, cap)
+        return deg
+
+    deg = np.concatenate([degrees(n - aux, e - aux_e, cap, law),
+                          degrees(aux, aux_e, n, "poisson")])
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=indptr[1:])
+    g = CSRGraph(indptr, rng.integers(0, n, e).astype(np.int32),
+                 rng.integers(1, 9, e).astype(np.float32),
+                 rng.integers(1, 4, n).astype(np.float32))
+    pinned = np.full(n, -1, dtype=np.int64)
+    pinned[n - aux:] = np.arange(aux)
+    return g, pinned
+
+
+def pack_time() -> list[dict]:
+    """csr_pack at the cells' recorded pack shapes (`PACK_SHAPES`): held
+    equal to its plain version and to the host pack (`csr_pack.host_pack`),
+    the kernel's device time (`device_ms`, warm and with L2 flushed) beside its
+    byte bound, its plain version's; and the V-cycle's pack whole, host
+    clock around each call and a synchronize (median of 10): the host pack
+    with its pageable copies, as the V-cycle packed before csr_pack, and
+    the V-cycle's own (`_pack`: the compact pinned upload and the kernel)."""
+    import torch
+
+    from repro_torch.core import multilevel_torch as mlt
+    from repro_torch.kernels import csr_pack as cp
+
+    dev = torch.device("cuda")
+    out = []
+    for name, n, e, aux, aux_e, cap, law, n_pad, e_pad, w_pad in PACK_SHAPES:
+        g, pinned = pack_inputs(n, e, aux, aux_e, cap, law)
+        arrays = [torch.from_numpy(a).cuda()
+                  for a in (g.indptr, g.indices, g.edge_w, g.node_w, pinned)]
+
+        def call():
+            return cp.csr_pack(*arrays, n_pad, e_pad, w_pad)
+
+        def host_path(*args):
+            return [None if a is None else torch.from_numpy(a).to(dev)
+                    for a in cp.host_pack(*args)]
+
+        got = call()
+        want = cp.csr_pack_plain(*arrays, n_pad, e_pad, w_pad)
+        host = host_path(g, pinned, n_pad, e_pad, w_pad)
+        card = mlt._pack(g, pinned, n_pad, e_pad, w_pad, dev)
+        torch.cuda.synchronize()
+        for a, b, c, d in zip(got, want, host, card):
+            check(all(x is None for x in (a, b, c, d))
+                  or (torch.equal(a, b) and torch.equal(a, c) and torch.equal(a, d)),
+                  f"csr_pack at the {name} shape differs from its plain version or the host pack")
+        ms = device_ms(call)
+        flush = torch.empty(2**24, device="cuda")
+        cold = device_ms(call, samples=20, reps=1, before=flush.zero_)
+        del flush
+        plain = device_ms(lambda: cp.csr_pack_plain(*arrays, n_pad, e_pad, w_pad))
+        bnd, by = bound(cp.bound_bytes(n_pad, e_pad, w_pad), 0)
+        # a yardstick of the card's write rate: one fill_ of as many bytes
+        big = torch.empty(cp.bound_bytes(n_pad, e_pad, w_pad) // 4, dtype=torch.float32,
+                          device="cuda")
+        fill = device_ms(lambda: big.fill_(1.0))
+        del big
+
+        def wall_ms(fn) -> float:
+            times = []
+            for _ in range(13):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn(g, pinned, n_pad, e_pad, w_pad, dev)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return sorted(times[3:])[5]
+
+        host_ms = wall_ms(lambda *args: host_path(*args[:5]))
+        card_ms = wall_ms(mlt._pack)
+        padded = sum(t.numel() * t.element_size() for t in host if t is not None)
+        compact = cp.compact_layout(g.n, e)[1]
+        log(f"[pack] csr_pack {name} (n={g.n}, e={e}, n_pad={n_pad}, e_pad={e_pad}, "
+            f"w_pad={w_pad}): equal to its plain version and the host pack bit for bit; "
+            f"kernel {ms * 1e3:.2f} us warm, {cold * 1e3:.2f} us with L2 flushed, plain "
+            f"{plain:.5f} ms; bound {bnd * 1e3:.2f} us ({by}), the kernel at "
+            f"{ms / bnd:.3f}x it (one fill_ of the same bytes {fill * 1e3:.2f} us, "
+            f"{fill / bnd:.3f}x); the V-cycle's pack: host {host_ms:.3f} ms "
+            f"({padded / 2**20:.2f} MiB pageable), compact {card_ms:.3f} ms "
+            f"({compact / 2**20:.2f} MiB pinned)")
+        out.append({"shape": name, "ms": ms, "cold_ms": cold, "plain_ms": plain,
+                    "bound_ms": bnd, "fill_ms": fill, "host_pack_ms": host_ms,
+                    "card_pack_ms": card_ms})
+        del got, want, host, card, arrays
+    torch.cuda.empty_cache()
+    log(f"[pack] on {gpu_name_and_limit()}")
+    return out
+
+
+def phase_pack_kernel() -> dict:
+    """The kernels line's csr_pack entry: `pack_time` at every recorded
+    shape, the first shape's times in front."""
+    shapes = pack_time()
+    return {
+        "name": "csr_pack",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/csr_pack.cu",
+        "replaces": None,
+        "replaces_kind": "the host padding of the V-cycle's pack (CSRGraph.to_coo_padded / "
+                         "to_ell_padded and pageable copies), not a TPU kernel",
+        "launches": 0,
+        **{k: shapes[0][k] for k in ("ms", "cold_ms", "plain_ms", "bound_ms")},
+        "library_ms": None,
+        "shapes": shapes,
+    }
+
+
 def swa_host(reps: int = 5) -> None:
     """The swa_attention wrapper's host time per call in bf16 at the serve
     shape and at decode_32k: the median, least and most of `reps` readings
@@ -1027,6 +1189,7 @@ def phase_full(side: int):
     from repro_torch.core.metrics import cut_ratio, edge_cut
     from repro_torch.core.pipeline import PipelineConfig
     from repro_torch.graphs import grid_mesh_graph
+    from repro_torch.kernels import csr_pack as cp
     from repro_torch.kernels import ell_histogram as eh
     from repro_torch.kernels import fennel_gain as fg
     from repro_torch.kernels import swa_attention as sw
@@ -1042,11 +1205,12 @@ def phase_full(side: int):
 
     mlt.multilevel_partition_torch = counted
     try:
-        eh.launches = sw.launches = fg.sweep_launches = 0
+        eh.launches = sw.launches = fg.sweep_launches = cp.launches = 0
         # prefetch 0 (T1 inline), as earlier versions of this script ran it
         dc = DriverConfig(buffcut=cfg, pipeline=PipelineConfig(prefetch_batches=0))
         res = partition(g, dc, driver="buffcut")
         launches, swa_launches, sweeps = eh.launches, sw.launches, fg.sweep_launches
+        packs = cp.launches
     finally:
         mlt.multilevel_partition_torch = engine
     block, stats = res.labels, res.stats
@@ -1060,6 +1224,8 @@ def phase_full(side: int):
     check(launches > 0, "the full-width run launched no ell_histogram kernel")
     check(sweeps == len(vcycles) > 0,
           f"{sweeps} fennel_sweep launches in {len(vcycles)} device V-cycles, expected one each")
+    check(packs == len(vcycles),
+          f"{packs} csr_pack launches in {len(vcycles)} device V-cycles, expected one each")
     loads = np.bincount(block, minlength=cfg.k)
     check(loads.max() <= np.ceil(1.03 * g.n / cfg.k), "balance cap violated")
     check(res.cut_weight == cut and res.balance == stats.balance,
@@ -1072,8 +1238,8 @@ def phase_full(side: int):
         f"balance={stats.balance:.6f} runtime_s={stats.runtime_s:.3f} "
         f"ml_time_s={stats.ml_time_s:.3f} nodes_per_s={g.n / stats.runtime_s:.0f} "
         f"provenance runtime_s={prov_s:.3f} (facade {prov_s - stats.runtime_s:.3f} s) "
-        f"ell_histogram_launches={launches} fennel_sweep_launches={sweeps} (device V-cycles "
-        f"{len(vcycles)}) swa_attention_launches={swa_launches}")
+        f"ell_histogram_launches={launches} fennel_sweep_launches={sweeps} csr_pack_launches="
+        f"{packs} (device V-cycles {len(vcycles)}) swa_attention_launches={swa_launches}")
     return launches, sweeps, block, stats, res
 
 
@@ -1923,20 +2089,31 @@ def phase_dlrm(cfg, params) -> int:
     return launches
 
 
+# (csr_pack launches, device V-cycles on a card) of each `counted_vcycles` block
+PACKS_COUNTED: list[tuple[int, int]] = []
+
+
 def counted_vcycles(record):
     """Context manager: wraps the device V-cycle so that every call first
-    runs `record()` and appends its result to the list it yields."""
+    runs `record()` and appends its result to the list it yields.  On a
+    clean exit it checks one csr_pack launch per V-cycle run on a card in
+    the block, and notes both counts in `PACKS_COUNTED`."""
     import contextlib
 
     import repro_torch.core.multilevel_torch as mlt
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import csr_pack as cp
 
     @contextlib.contextmanager
     def ctx():
-        seen = []
+        seen, on_card = [], []
         engine = mlt.multilevel_partition_torch
+        packs = cp.launches
 
         def counted(*a, **kw):
             seen.append(record())
+            cfg = a[4] if len(a) > 4 else kw["cfg"]
+            on_card.append(resolve_device(cfg.device).type == "cuda")
             return engine(*a, **kw)
 
         mlt.multilevel_partition_torch = counted
@@ -1944,6 +2121,10 @@ def counted_vcycles(record):
             yield seen
         finally:
             mlt.multilevel_partition_torch = engine
+        packs = cp.launches - packs
+        check(packs == sum(on_card), f"{packs} csr_pack launches in {sum(on_card)} device "
+              f"V-cycles on a card, expected one each")
+        PACKS_COUNTED.append((packs, sum(on_card)))
     return ctx()
 
 
@@ -2669,6 +2850,7 @@ def phase_api(path: str, side: int, full_res) -> dict:
     from repro_torch.api.cli import main as cli_main
     from repro_torch.core.metrics import edge_cut
     from repro_torch.graphs import rmat_graph
+    from repro_torch.kernels import csr_pack as cp
     from repro_torch.kernels import ell_histogram as eh
     from repro_torch.kernels import fennel_gain as fg
     from repro_torch.launch import serve
@@ -2681,12 +2863,13 @@ def phase_api(path: str, side: int, full_res) -> dict:
     argv = ["partition", path, "-k", str(cfg.k), "--buffer-size", str(cfg.buffer_size),
             "--batch-size", str(cfg.batch_size), "--d-max", f"{cfg.d_max:g}", "--engine",
             cfg.ml.engine, "--driver", "pipelined", "--json", out]
-    eh.launches = fg.sweep_launches = 0
+    eh.launches = fg.sweep_launches = cp.launches = 0
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(io.StringIO()) as said:
         rc = cli_main(argv)
     t_cli = time.perf_counter() - t0
-    cli = {"ell_histogram": eh.launches, "fennel_sweep": fg.sweep_launches}
+    cli = {"ell_histogram": eh.launches, "fennel_sweep": fg.sweep_launches,
+           "csr_pack": cp.launches}
     check(rc == 0, f"api: the CLI exited with {rc}")
     with open(out) as f:
         blob = json.load(f)
@@ -2703,7 +2886,8 @@ def phase_api(path: str, side: int, full_res) -> dict:
           f"api: provenance {prov['source']['kind']}, {prov['driver']}, {prov['device']}")
     check(st["stream_bytes_read"] >= size - 64,
           f"api: read {st['stream_bytes_read']} of the file's {size} bytes")
-    check(cli["ell_histogram"] > 0 and cli["fennel_sweep"] == st["n_batches"] > 0,
+    check(cli["ell_histogram"] > 0
+          and cli["fennel_sweep"] == cli["csr_pack"] == st["n_batches"] > 0,
           f"api: CLI launches {cli}, {st['n_batches']} batches")
     log(f"[api] python -m repro_torch {' '.join(argv[:-2])} (phase 16's file, {size} bytes): "
         f"exit 0 in {t_cli:.3f} s; {said.getvalue().strip().splitlines()[0]}; JSON labels == "
@@ -2712,7 +2896,7 @@ def phase_api(path: str, side: int, full_res) -> dict:
         f"ml_time_s={st['ml_time_s']:.3f} provenance runtime_s={prov['runtime_s']:.3f} "
         f"(facade {prov['runtime_s'] - st['runtime_s']:.3f} s), stream_bytes_read="
         f"{st['stream_bytes_read']}; ell_histogram_launches={cli['ell_histogram']} "
-        f"fennel_sweep_launches={cli['fennel_sweep']}")
+        f"fennel_sweep_launches={cli['fennel_sweep']} csr_pack_launches={cli['csr_pack']}")
 
     with counted_vcycles(lambda: 1) as vcycles:
         eh.launches = fg.sweep_launches = 0
@@ -3015,13 +3199,14 @@ DLRM_TRAIN_ROWS, DLRM_TRAIN_BATCH, DLRM_TRAIN_STEPS = 1 << 18, 4096, 20
 
 
 def kernel_modules() -> dict:
+    from repro_torch.kernels import csr_pack as cp
     from repro_torch.kernels import ell_histogram as eh
     from repro_torch.kernels import fennel_gain as fg
     from repro_torch.kernels import swa_attention as sw
 
     return {"ell_histogram": eh, "swa_attention": sw,
             "embedding_bag": importlib.import_module("repro_torch.kernels.embedding_bag"),
-            "fennel_gain": fg}
+            "fennel_gain": fg, "csr_pack": cp}
 
 
 def zero_launches() -> None:
@@ -3905,6 +4090,9 @@ def phase_quickstart() -> dict:
     check(card.cut_ratio == host.cut_ratio, "the quickstart's cut differs from host sparse's")
     check(launches["ell_histogram"] > 0, "the quickstart's buffcut run launched no "
                                          "ell_histogram kernel (auto should route to ell)")
+    check(launches["csr_pack"] == launches["fennel_sweep"],
+          f"the quickstart's buffcut run: {launches['csr_pack']} csr_pack launches for "
+          f"{launches['fennel_sweep']} device V-cycles (fennel_sweep launches)")
     largest = max(inputs, key=lambda s: s[0] * s[2])
     blk, wts = inputs[largest]
     got = eh.block_histogram(blk, wts, largest[2])
@@ -3989,6 +4177,7 @@ def main(argv: list[str] | None = None) -> int:
         sweep_time(coarsest, plain=False, profile=True, other=other)
         if other is not None:
             sweep_turns(other, coarsest)
+        pack_time()
         swa_host()
         fennel_large_k()
         swa_general_time()
@@ -3997,10 +4186,12 @@ def main(argv: list[str] | None = None) -> int:
         return 0
     hist = timed("kernels/ell_histogram", phase_kernels)
     swa = timed("kernels/swa_attention", phase_swa_kernel)
+    pack = timed("kernels/csr_pack", phase_pack_kernel)
     timed("parity", phase_parity)
     hist["max_abs_err"] = max(hist["max_abs_err"], timed("auto", phase_auto, AUTO_SIDE))
     side = 1024
     hist["launches"], sweeps, full_block, full_stats, full_res = timed("full", phase_full, side)
+    pack["launches"] = sweeps  # phase 5 checks one csr_pack launch per sweep launch
     coarsest = timed("profile", phase_profile, side)
     swa["launches"] = timed("serve", phase_serve)
     timed("decode", phase_decode_vs_train)
@@ -4020,7 +4211,9 @@ def main(argv: list[str] | None = None) -> int:
     served = timed("serve partition", phase_serve_partition, side, full_res)
     api = timed("api", phase_api, path, side, full_res)
     Path(path).unlink()
+    packs = kernel_modules()["csr_pack"].launches
     gnn_launches, gnn_g, gnn_block = timed("gnn", phase_gnn)
+    pack["launches"] += kernel_modules()["csr_pack"].launches - packs  # the placement's
     lm = [timed("moe_serve", phase_moe_serve), timed("moe_parity", phase_moe_parity),
           timed("train_lm", phase_train_lm), timed("train_dlrm", phase_train_dlrm)]
     meshed = timed("mesh", phase_mesh, gnn_g, gnn_block)
@@ -4033,26 +4226,29 @@ def main(argv: list[str] | None = None) -> int:
         f"restream {restream[1]}, shard {shard[1]}, shard from disk {shard_disk[1]}, "
         f"reconcile {reconcile[1]}, serve {served[1]}, CLI {api['cli']['fennel_sweep']}, "
         f"heistream {api['heistream']['fennel_sweep']}; phase 22 (the GNN placement): "
-        f"ell_histogram {gnn_launches}, added to the kernels line")
+        f"ell_histogram {gnn_launches}, added to the kernels line; csr_pack, one a device "
+        f"V-cycle on a card (checked in each counted block of phases 14-22): "
+        f"{sum(c for c, _ in PACKS_COUNTED)} in {len(PACKS_COUNTED)} blocks, CLI "
+        f"{api['cli']['csr_pack']}")
     hist["launches"] += gnn_launches
     for entry, name in ((hist, "ell_histogram"), (swa, "swa_attention"), (bag, "embedding_bag"),
-                        (fennel, "fennel_gain"), (sweep, "fennel_sweep")):
+                        (fennel, "fennel_gain"), (sweep, "fennel_sweep"), (pack, "csr_pack")):
         entry["launches"] += sum(counts[name] for counts in lm)
     log(f"[kernels] launches of phases 23-26 (moe_serve, moe_parity, train_lm, train_dlrm), "
         f"added to the kernels line: {lm}")
     for entry, name in ((hist, "ell_histogram"), (swa, "swa_attention"), (bag, "embedding_bag"),
-                        (fennel, "fennel_gain"), (sweep, "fennel_sweep")):
+                        (fennel, "fennel_gain"), (sweep, "fennel_sweep"), (pack, "csr_pack")):
         entry["launches"] += meshed[name]
     log(f"[kernels] launches of phase 27 (mesh: the decode cell's swa_attention, the DLRM "
         f"cells' embedding_bag), added to the kernels line: {meshed}")
     quick = timed("quickstart", phase_quickstart)
     for entry, name in ((hist, "ell_histogram"), (swa, "swa_attention"), (bag, "embedding_bag"),
-                        (fennel, "fennel_gain"), (sweep, "fennel_sweep")):
+                        (fennel, "fennel_gain"), (sweep, "fennel_sweep"), (pack, "csr_pack")):
         entry["launches"] += quick[name]
     log(f"[kernels] launches of phase 28 (quickstart: the in-process buffcut run), added to "
         f"the kernels line: {quick}")
     log(f"[env] total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [hist, swa, bag, fennel, sweep]}))
+    print(json.dumps({"kernels": [hist, swa, bag, fennel, sweep, pack]}))
     print(gpu_name_and_limit())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

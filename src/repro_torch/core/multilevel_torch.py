@@ -4,7 +4,11 @@ The port of `repro/core/multilevel_jax.py`.  The whole per-batch V-cycle
 (DESIGN.md §3.5) stays on `cfg.device`:
 
   pack      the batch model graph is packed once into pow2-bucketed padded
-            buffers (`CSRGraph.to_coo_padded` / `to_ell_padded`),
+            buffers by `kernels/csr_pack.py` from the compact CSR: on a
+            card the host uploads it in one pinned block and the CUDA
+            kernel writes the padding, on the CPU its plain version does
+            (the host's `CSRGraph.to_coo_padded` / `to_ell_padded` are the
+            tests' oracle of both),
   coarsen   LP clustering rounds; contraction is a segmented sum over
             composite (coarse-src, coarse-dst) keys into the same buffers,
   initial   weighted Fennel on the coarsest level, sequential over the
@@ -45,6 +49,8 @@ from repro_torch.core.multilevel import _ELL_VOLUME_CAP as ELL_VOLUME_CAP
 from repro_torch.core.multilevel import _ELL_WIDTH_CAP as ELL_WIDTH_CAP
 from repro_torch.device import resolve_device
 from repro_torch.graphs.csr import CSRGraph, bucket_size
+from repro_torch.kernels.csr_pack import (compact_layout, compact_views, csr_pack,
+                                          pack_outputs)
 from repro_torch.kernels.ell_histogram import block_histogram
 from repro_torch.kernels.fennel_gain import fennel_sweep
 
@@ -489,6 +495,33 @@ def _sync_int(t: torch.Tensor) -> int:
         return int(t)
 
 
+def _pack(g: CSRGraph, pinned: np.ndarray, n_pad: int, e_pad: int, w_pad: int | None,
+          dev: torch.device):
+    """The level-0 buffers (esrc, edst, ew, node_w, pin, nbr, wts) on `dev`,
+    written by `csr_pack` from the compact CSR in one block; nbr and wts
+    are None without `w_pad`.  On a card the block is pinned and sent with
+    one non-blocking copy, and the kernel writes the padding; it is taken
+    from PyTorch's caching host allocator for each call (the shard pool's
+    threads pack at once), which reuses it only once the copy that read it
+    has finished.  On the CPU the plain version reads the block in place."""
+    n, e = g.n, int(g.indices.size)
+    on_card = dev.type == "cuda"
+    host = torch.empty(compact_layout(n, e)[1], dtype=torch.uint8, pin_memory=on_card)
+    for view, a in zip(compact_views(host, n, e),
+                       (g.indptr, g.indices, g.edge_w, g.node_w, pinned)):
+        np.copyto(view.numpy(), a)
+    tracing.add("h2d_bytes", host.numel())
+    # the outputs before the upload's device block: that block, freed on
+    # return, goes back into the free block it was cut from, so the caching
+    # allocator is left as the same buffers uploaded padded would leave it
+    out = pack_outputs(n_pad, e_pad, w_pad, dev)
+    block = host.to(dev, non_blocking=True)
+    csr_pack(*compact_views(block, n, e), n_pad, e_pad, w_pad, out=out)
+    if on_card:
+        tracing.add("pack_kernel", 1)
+    return out
+
+
 def _vcycle(g: CSRGraph, pinned: np.ndarray, p: FennelParams, loads_base: np.ndarray,
             cfg) -> np.ndarray:
     dev = resolve_device(cfg.device)
@@ -544,13 +577,6 @@ def _vcycle(g: CSRGraph, pinned: np.ndarray, p: FennelParams, loads_base: np.nda
         # edge bucket floored at 8·n_pad (capped) so batch-to-batch edge-count
         # noise maps onto one shape
         e_pad = bucket_size(int(g.indices.size), minimum=min(8 * n_pad, 2048))
-        src_h, dst_h, w_h = g.to_coo_padded(n_pad, e_pad)
-        node_w_h = np.zeros(n_pad, dtype=np.float64)
-        node_w_h[:n] = g.node_w
-        pin_h = np.full(n_pad, -2, dtype=np.int64)
-        pin_h[:n] = pinned
-        esrc, edst, ew = to_dev(src_h), to_dev(dst_h), to_dev(w_h)
-        node_w, pin = to_dev(node_w_h), to_dev(pin_h)
 
         free_total = pinned < 0
         n_free = int(free_total.sum())
@@ -563,14 +589,14 @@ def _vcycle(g: CSRGraph, pinned: np.ndarray, p: FennelParams, loads_base: np.nda
         # truncation is harmless)
         free_deg = int(np.max(np.diff(g.indptr)[free_total], initial=1))
         w_pad = bucket_size(free_deg, minimum=8)
+        tiled = "ell" in (cluster_mode(0, n_pad)[0], refine_mode(0, n_pad)[0])
+
+        esrc, edst, ew, node_w, pin, nbr, wts = _pack(
+            g, pinned, n_pad, e_pad, w_pad if tiled else None, dev)
 
         dummy_nbr = torch.zeros((1, 8), dtype=torch.int64, device=dev)
         dummy_wts = torch.zeros((1, 8), dtype=torch.float32, device=dev)
-        if "ell" in (cluster_mode(0, n_pad)[0], refine_mode(0, n_pad)[0]):
-            nbr_h, wts_h, _ = g.to_ell_padded(
-                np.arange(n, dtype=np.int64), row_bucket=n_pad, width_bucket=w_pad)
-            nbr, wts = to_dev(nbr_h.astype(np.int64)), to_dev(wts_h)
-        else:
+        if not tiled:
             nbr, wts = dummy_nbr, dummy_wts
 
     def tiles(level: int):

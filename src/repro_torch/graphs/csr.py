@@ -1,9 +1,11 @@
 """CSR graph container (host numpy, as in `repro.graphs.csr`).
 
-The streaming partitioner's host-side state is numpy; the device engine
-consumes padded COO/ELL tiles extracted from this CSR and moves them to
-torch tensors itself.  Graphs are undirected and simple: every edge (u, v)
-is stored twice (u->v and v->u), no self loops, no parallel edges.
+The streaming partitioner's host-side state is numpy.  The device engine
+pads this CSR into COO/ELL tiles itself (`kernels/csr_pack.py`, from the
+compact arrays: the CUDA kernel on a card, its plain version on the CPU);
+the host helpers `to_coo_padded` and `to_ell_padded` are the tests' oracle
+of that pack.  Graphs are undirected and simple: every edge (u, v) is
+stored twice (u->v and v->u), no self loops, no parallel edges.
 """
 from __future__ import annotations
 

@@ -33,8 +33,9 @@ The spans of the batch path (every span of a batch descends from its
                      map and the internal split), .aux (the aux-edge
                      weights) and .csr (`CSRGraph.from_edges`)
     vcycle.run       the device V-cycle (`core/multilevel_torch.py`), with
-                     its stages .pack (padding, tiles, uploads; count
-                     `h2d_bytes`), .coarsen (one a level tried), .initial,
+                     its stages .pack (the upload and the padding; counts
+                     `h2d_bytes`, and `pack_kernel` for each `csr_pack`
+                     launch on a card), .coarsen (one a level tried), .initial,
                      .refine (one a level) and .fetch (the labels back);
                      `vcycle.sync` marks each point where the host waits for
                      the card, inside the stage that waits

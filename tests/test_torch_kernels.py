@@ -363,7 +363,7 @@ def test_public_ops_are_the_references_four():
     assert kernels.swa_attention_decode is sw.swa_attention_decode
     from repro_torch.kernels import _build
     assert set(_build.SOURCES) == {"ell_histogram", "fennel_gain", "embedding_bag",
-                                   "swa_attention"}
+                                   "swa_attention", "csr_pack"}
     for name in _build.SOURCES:
         assert (_build.CSRC / f"{name}.cu").exists()
 

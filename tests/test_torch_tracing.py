@@ -193,7 +193,7 @@ def test_every_batch_is_one_tree_of_the_stages(on, order):
         assert sum(syncs.values()) == want
         assert sum(syncs[s.id] for s in stages if s.name == "vcycle.refine") == 0
         assert syncs[stages[-1].id] == 1
-        # uploads: the padded COO arrays, node weights and pins, then the loads
+        # uploads: the compact CSR (node arrays and edges), then the loads
         pack = stages[0]
         n_pad = 1 << int(np.ceil(np.log2(768 + 8)))
         assert pack.counts["h2d_bytes"] >= 8 * 2 * n_pad
